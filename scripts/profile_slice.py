@@ -1,0 +1,149 @@
+#!/usr/bin/env python3
+"""Where the serving slice's time goes on the card.
+
+    PYTHONPATH=src python3 scripts/profile_slice.py [--decode-steps 4]
+
+Builds the slice that chip_smoke.py drives (deepseek-7b at full width,
+bf16, random weights from a seeded generator, ``attn_impl="flash_pallas"``,
+B=4 prompts of 1024 tokens), warms it up, then traces one prefill and a few
+greedy decode steps with ``torch.profiler`` (CPU and CUDA activities).  For
+each phase it prints one JSON line: the host-clock wall time with and
+without the profiler, the device's busy time (the union of kernel
+intervals) and idle share, and device time by kernel category and by
+kernel name.  Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+CATEGORIES = (
+    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "splitk")),
+    ("reduce", ("reduce", "softmax", "argmax", "norm")),
+    ("copy_cast", ("copy", "cat", "fill")),
+)
+
+
+def category(name: str) -> str:
+    low = name.lower()
+    for cat, keys in CATEGORIES:
+        if any(k in low for k in keys):
+            return cat
+    return "elementwise_other"
+
+
+def busy_us(intervals) -> float:
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def summarize(phase: str, prof, wall_ms: float, plain_wall_ms: float,
+              card: str) -> dict:
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise SystemExit("profile_slice: the trace holds no device time")
+    by_name, by_cat = defaultdict(float), defaultdict(float)
+    for e in kernels:
+        dur = e.time_range.end - e.time_range.start
+        by_name[e.name] += dur
+        by_cat[category(e.name)] += dur
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"phase": phase, "card": card,
+            "wall_ms_profiled": wall_ms, "wall_ms_unprofiled": plain_wall_ms,
+            "device_busy_ms": busy / 1e3,
+            "device_idle_share_unprofiled": max(
+                0.0, 1.0 - busy / 1e3 / plain_wall_ms),
+            "kernel_launches": len(kernels),
+            "device_ms_by_category": {k: v / 1e3 for k, v in
+                                      sorted(by_cat.items(),
+                                             key=lambda kv: -kv[1])},
+            "top_kernels_ms": [[n[:120], v / 1e3] for n, v in top]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--decode-steps", type=int, default=4)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_slice: needs a CUDA card")
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_model
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    cfg = dataclasses.replace(get_arch("deepseek-7b"),
+                              attn_impl="flash_pallas")
+    B, S = 4, 1024
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_model(gen, cfg, device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    prefill = make_prefill_step(cfg, pad_to=S + 32, device="cuda")
+    decode = make_decode_step(cfg, device="cuda")
+
+    def run_prefill():
+        return prefill(params, {"tokens": prompts})
+
+    def run_decode(cache, tok):
+        for t in range(args.decode_steps):
+            tok, _, cache = decode(params, cache, tok, S + t)
+        return cache, tok
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    logits, cache = run_prefill()                       # warm-up
+    tok0 = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    run_decode(cache, tok0)
+    del cache
+
+    (_, cache), plain_ms = timed(run_prefill)
+    del cache
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        (_, cache), wall_ms = timed(run_prefill)
+    print(json.dumps(summarize("prefill", prof, wall_ms, plain_ms, card)))
+
+    _, plain_ms = timed(lambda: run_decode(cache, tok0))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall_ms = timed(lambda: run_decode(cache, tok0))
+    dec = summarize(f"decode x{args.decode_steps}", prof, wall_ms, plain_ms,
+                    card)
+    dec["decode_ms_per_step_unprofiled"] = plain_ms / args.decode_steps
+    print(json.dumps(dec))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,184 @@
+"""Architecture assembly in torch, dense decoder-only path.
+
+Counterpart of the JAX package's models/transformer.py.  Layer params are
+stacked with a leading ``L`` dim, as in JAX; ``lax.scan`` over the stack
+becomes a Python loop over ``params["blocks"][...][i]``.  The families this
+port has not reached yet (moe, ssm, hybrid, encdec, vlm) raise
+``NotImplementedError`` when a model is built for them.
+
+  forward_train(params, cfg, batch) -> (hidden, aux_loss)   (forward only)
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import layers as L
+from .attention_flash import blockwise_attention
+
+Params = dict
+
+PORTED_FAMILIES = ("dense",)
+
+
+def _require_ported(cfg) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported to torch yet "
+            f"(ported: {', '.join(PORTED_FAMILIES)})")
+
+
+# ======================================================================
+# init
+# ======================================================================
+
+def _block_init(gen: torch.Generator, cfg, kind: str, tp_pad: int) -> Params:
+    if kind != "attn":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    dt = L._dtype(cfg)
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
+    return {"norm1": ones(), "attn": L.init_attention(gen, cfg, tp_pad),
+            "norm2": ones(), "mlp": L.init_mlp(gen, cfg)}
+
+
+def _map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _stack(gen: torch.Generator, cfg, kind: str, n: int,
+           tp_pad: int) -> Params:
+    """n layers' params stacked on a leading dim, filled layer by layer so
+    that only one layer exists outside the stack at a time."""
+    first = _block_init(gen, cfg, kind, tp_pad)
+    out = _map(lambda a: a.new_empty((n, *a.shape)), first)
+
+    def put(i, layer):
+        _map(lambda dst, src: dst[i].copy_(src), out, layer)
+
+    put(0, first)
+    del first
+    for i in range(1, n):
+        put(i, _block_init(gen, cfg, kind, tp_pad))
+    return out
+
+
+def block_kinds(cfg) -> list[str]:
+    """The block sequence of an architecture."""
+    if cfg.family == "ssm":
+        return ["ssm"] * cfg.n_layers
+    if cfg.family == "moe":
+        return ["moe"] * cfg.n_layers
+    if cfg.family == "hybrid":
+        return ["local_attn" if (i + 1) % cfg.attn_every == 0 else "rec"
+                for i in range(cfg.n_layers)]
+    return ["attn"] * cfg.n_layers
+
+
+def init_model(gen: torch.Generator, cfg, tp_pad: int = 1) -> Params:
+    """Draws every param from ``gen`` on its device.  tp_pad: q-heads are
+    padded up to a multiple of it (zero-weight pad heads)."""
+    _require_ported(cfg)
+    params: Params = {"embed": L.init_embedding(gen, cfg)}
+    params["blocks"] = _stack(gen, cfg, block_kinds(cfg)[0], cfg.n_layers,
+                              tp_pad)
+    return params
+
+
+def layer(stack: Params, i: int) -> Params:
+    """Layer ``i``'s params: views into the stacked tensors."""
+    return _map(lambda a: a[i], stack)
+
+
+# ======================================================================
+# block apply (full sequence)
+# ======================================================================
+
+def _apply_attn_block(p: Params, x, cfg, positions, *, n_heads, window=0,
+                      prefix=0, causal=True):
+    h = L.rms_norm(x, p["norm1"])
+    B, Sq, d = h.shape
+    q = L._split_heads(h @ p["attn"]["wq"], n_heads, cfg.head_dim)
+    k = L._split_heads(h @ p["attn"]["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = L._split_heads(h @ p["attn"]["wv"], cfg.n_kv_heads, cfg.head_dim)
+    q = L.apply_rope(q, positions, cfg.rotary_pct, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rotary_pct, cfg.rope_theta)
+    if cfg.attn_impl == "flash_pallas":
+        from ..kernels.ops import flash_attention
+        out = flash_attention(q, k, v, cfg.n_kv_heads, causal, window,
+                              prefix, cfg.flash_bq, cfg.flash_bk)
+    elif cfg.attn_impl == "flash":
+        out = blockwise_attention(q, k, v, cfg.n_kv_heads, causal=causal,
+                                  window=window, prefix=prefix,
+                                  bq=cfg.flash_bq, bk=cfg.flash_bk)
+    elif cfg.attn_impl == "flash_cvjp":
+        raise NotImplementedError("attn_impl='flash_cvjp' comes with the "
+                                  "training slice (attention_flash_vjp)")
+    else:
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+    x = x + out.reshape(B, Sq, -1) @ p["attn"]["wo"]
+    return x, (k, v)
+
+
+def _apply_mlp_or_moe(p: Params, x, cfg, n_groups=1):
+    """Dense MLP only in this port; returns (x + mlp(norm(x)), aux=0)."""
+    if "moe" in p:
+        raise NotImplementedError("MoE blocks are not ported yet")
+    h = L.rms_norm(x, p["norm2"])
+    y = L.apply_mlp(p["mlp"], h, cfg)
+    return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _dense_block(p, x, cfg, positions, *, n_heads, window, prefix,
+                 n_groups=1, collect_kv=False):
+    x, kv = _apply_attn_block(p, x, cfg, positions, n_heads=n_heads,
+                              window=window, prefix=prefix)
+    x, aux = _apply_mlp_or_moe(p, x, cfg, n_groups=n_groups)
+    return x, aux, (kv if collect_kv else None)
+
+
+# ======================================================================
+# full-sequence forward
+# ======================================================================
+
+def _sinusoidal(positions, d):
+    pos = positions.float()[..., None]
+    half = d // 2
+    freq = torch.exp(-math.log(10000.0)
+                     * torch.arange(half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = pos * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _embed_inputs(params, cfg, batch):
+    """Returns (x (B,S,d), positions (B,S))."""
+    x = L.shard_batch(L.embed(params["embed"], batch["tokens"]))
+    B, Sx = x.shape[:2]
+    positions = torch.arange(Sx, device=x.device)[None].expand(B, Sx)
+    if cfg.rotary_pct == 0.0:
+        x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)
+    return x, positions
+
+
+def forward_train(params: Params, cfg, batch, n_groups: int = 1):
+    """-> (hidden (B,S,d), aux_loss).  A forward pass only: the gradient
+    path comes with the training slice."""
+    _require_ported(cfg)
+    n_heads = params_n_heads(params, cfg)
+    x, positions = _embed_inputs(params, cfg, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        x, aux_i, _ = _dense_block(layer(params["blocks"], i), x, cfg,
+                                   positions, n_heads=n_heads,
+                                   window=cfg.swa_window, prefix=0,
+                                   n_groups=n_groups)
+        aux = aux + aux_i
+    return x, aux
+
+
+def params_n_heads(params: Params, cfg) -> int:
+    """Recover the (possibly TP-padded) q-head count from the weights."""
+    return params["blocks"]["attn"]["wq"].shape[-1] // cfg.head_dim

@@ -1,0 +1,118 @@
+"""Guards of the PyTorch port: it imports neither JAX nor the JAX package,
+its entry points never fall back to the CPU on their own, and
+chip_smoke.py refuses to run (and prints no result) without a card."""
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(ROOT / "src").with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def _run(args, cwd, timeout=120):
+    return subprocess.run([sys.executable, *args], cwd=cwd, timeout=timeout,
+                          capture_output=True, text=True,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_repro():
+    mods = list(_modules())
+    assert "repro_torch.kernels.flash_attention" in mods
+    code = "\n".join([
+        "import importlib, importlib.util, sys",
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})",
+        f"for m in {mods!r}: importlib.import_module(m)",
+        "spec = importlib.util.spec_from_file_location('chip_smoke', "
+        f"{str(ROOT / 'chip_smoke.py')!r})",
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))",
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
+        "or m.startswith('jaxlib'))",
+        "print('BAD', bad)",
+        "sys.exit(1 if bad else 0)"])
+    res = _run(["-c", code], cwd=ROOT)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("call", ["init_model", "make_inputs", "init_cache",
+                                  "make_prefill_step", "make_decode_step",
+                                  "measure_decode_s"])
+def test_entry_points_refuse_cpu_without_being_asked(call):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.configs import ARCHS, ShapeConfig, smoke_variant
+    from repro_torch import models, serve
+    cfg = smoke_variant(ARCHS["deepseek-7b"])
+    gen = torch.Generator().manual_seed(0)
+    calls = {
+        "init_model": lambda: models.init_model(gen, cfg),
+        "make_inputs": lambda: models.make_inputs(
+            gen, cfg, ShapeConfig("t", 8, 1, "prefill")),
+        "init_cache": lambda: models.init_cache(cfg, 8, 1),
+        "make_prefill_step": lambda: serve.make_prefill_step(cfg),
+        "make_decode_step": lambda: serve.make_decode_step(cfg),
+        "measure_decode_s": lambda: serve.measure_decode_s(),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[call]()
+
+
+def test_step_refuses_tokens_on_another_device():
+    from repro_torch.configs import ARCHS, smoke_variant
+    from repro_torch.serve import make_prefill_step
+    cfg = smoke_variant(ARCHS["deepseek-7b"])
+    step = make_prefill_step(cfg, device="cpu")
+    with pytest.raises(ValueError, match="step bound to"):
+        step({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32,
+                                        device="meta")})
+
+
+@pytest.mark.parametrize("family_arch", ["qwen3-moe-235b-a22b", "mamba2-370m",
+                                         "recurrentgemma-9b",
+                                         "seamless-m4t-large-v2",
+                                         "paligemma-3b"])
+def test_unported_families_raise(family_arch):
+    from repro_torch.configs import ARCHS, smoke_variant
+    from repro_torch.models import init_model
+    with pytest.raises(NotImplementedError):
+        init_model(torch.Generator().manual_seed(0),
+                   smoke_variant(ARCHS[family_arch]), device="cpu")
+
+
+def test_flash_cvjp_waits_for_training_slice():
+    import dataclasses
+    from repro_torch.configs import ARCHS, smoke_variant
+    from repro_torch.models import forward_train, init_model
+    cfg = dataclasses.replace(smoke_variant(ARCHS["deepseek-7b"]),
+                              attn_impl="flash_cvjp")
+    params = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        forward_train(params, cfg,
+                      {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+
+
+def test_chip_smoke_fails_without_a_card():
+    res = _run([str(ROOT / "chip_smoke.py")], cwd=ROOT)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+    assert "FAIL" in res.stderr
+    assert "build_s" not in res.stdout     # refused before any build
+
+
+def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = _run(["chip_smoke.py"], cwd=tmp_path)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
