@@ -9,8 +9,10 @@ Phases, each fatal on failure:
 
 1. print the card's name and power limit; build every kernel from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
-2. hold each kernel against its plain torch version on the card, in fp32
-   and bf16, at the reference tests' cases and at the serving slice's shape;
+2. hold each kernel against its plain torch version on the card: flash
+   attention forward and backward in fp32 and bf16 at the reference tests'
+   cases, a ragged S, D=256 and the slices' shapes; quantize / dequantize
+   bit for bit on a layer-sized gradient, an all-zero group and .5 ties;
 3. drive the serving slice through the port's entry points at full width:
    deepseek-7b (30 layers, d 4096, bf16, random weights from a seeded
    generator on the card), ``attn_impl="flash_pallas"``, B=4 prompts of
@@ -19,7 +21,14 @@ Phases, each fatal on failure:
    and read just after, and the kernel must have run once per layer;
    check the outputs (finite logits, kernel path vs the plain blockwise
    path, decode at position S vs a prefill of S+1 tokens);
-4. time the slice and each kernel against its bound, its plain version and
+4. drive the training slice: deepseek-7b at full width and depth with
+   Adafactor, int8 gradient compression, ``flash_pallas`` and remat, one
+   micro-batch of B=2 x 4096 tokens; hold the kernel path's loss, grad
+   norm and per-leaf gradients against the plain path's from the same
+   params and batch, then run ``make_train_step`` once to warm up and 3
+   timed steps with every launch counter set to 0 just before and read
+   just after (exact counts per step), and check the loss falls;
+5. time the slices and each kernel against its bound, its plain version and
    the nearest PyTorch call.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -47,6 +56,12 @@ SLICE_PROMPT = 1024
 SLICE_PAD = 32
 SLICE_DECODE_STEPS = 32
 
+# The training slice: the train_4k shape's sequence, one micro-batch.
+TRAIN_BATCH = 2
+TRAIN_SEQ = 4096
+TRAIN_TIMED_STEPS = 3
+TRAIN_CASE = (TRAIN_BATCH, TRAIN_SEQ, 32, 32, 128, True, 0, 0)
+
 # (B, S, Hq, n_kv, D, causal, window, prefix): the reference tests' cases,
 # a ragged S, and the slice's shape (last).
 KERNEL_CASES = [
@@ -63,6 +78,28 @@ KERNEL_CASES = [
 # relative), so out is held at 1e-2 and the fp32 lse at 1e-3.
 TOL = {"float32": {"out": 3e-4, "lse": 3e-4},
        "bfloat16": {"out": 1e-2, "lse": 1e-3}}
+# Backward kernels vs their plain twin.  fp32: the reference tests' 4e-3
+# for gradients.  bf16: the kernels compute in fp32 from bf16 inputs like
+# the twin and round dq/dk/dv once (2^-8 relative), so each is held at
+# 1e-2 relative plus 1e-2 of its largest |value| (sums over up to 4096 keys
+# cancel, so single elements can be far below the tensor's scale).
+BWD_CASES = KERNEL_CASES[:6] + [(1, 333, 6, 3, 256, True, 100, 0),
+                                TRAIN_CASE]
+GRAD_TOL = {"float32": (4e-3, 4e-3), "bfloat16": (1e-2, 1e-2)}
+# One layer of deepseek-7b's stacked w_gate gradient, as the quantizer sees
+# it in the training step: 4096 x 11008 values = 44,032 groups.
+QUANT_LEAF = (4096, 11008)
+# Training slice, kernel path (fp32 p, fp32 dq/dk/dv accumulation) vs the
+# plain blockwise path (bf16 p before P.V, autograd of the online softmax),
+# bf16 over 30 layers, from the same params and batch.  The serving slice's
+# hidden states differ by 1.9e-2 between the two paths; the mean loss over
+# 8190 tokens averages that noise down, gradients carry it back through 30
+# layers: loss 5e-3 relative, global grad norm 5e-2 relative, each leaf's
+# gradient 1e-1 relative (norm of the difference over the plain norm).  A
+# missing or wrong attention gradient moves the attention leaves by O(1).
+TRAIN_LOSS_REL_TOL = 5e-3
+TRAIN_GNORM_REL_TOL = 5e-2
+TRAIN_LEAF_REL_TOL = 1e-1
 # Full width, bf16, 30 layers: the kernel keeps p in fp32 where the
 # blockwise path rounds it to bf16, so last-token hidden states may differ
 # by bf16 noise carried through the residual stream.
@@ -162,6 +199,91 @@ def phase_kernels() -> float:
             if case == KERNEL_CASES[-1] and dtype == torch.bfloat16:
                 slice_err = err_out
     return slice_err
+
+
+def phase_bwd_kernels() -> float:
+    """Backward kernels vs their plain twin on the card; returns the
+    training slice case's bf16 max |error| over dq, dk and dv.  Runs before
+    any model is loaded: at that shape the twin holds several 4.3 GB
+    (B, H, S, S) fp32 tensors."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    slice_err = None
+    for case in BWD_CASES:
+        causal, window, prefix = case[5:]
+        mask = dict(causal=causal, window=window, prefix=prefix)
+        for dtype in (torch.float32, torch.bfloat16):
+            B, S, Hq, n_kv, D = case[:5]
+            (q, _, _), (q5, k4, v4) = make_qkv(case, dtype, gen)
+            do5 = torch.randn(q.shape, generator=gen, device="cuda") \
+                .to(dtype).reshape(B, S, n_kv, Hq // n_kv, D) \
+                .permute(0, 2, 3, 1, 4)
+            out, lse = fa.flash_fwd_reference(q5, k4, v4, **mask)
+            delta = (do5.float() * out.float()).sum(-1)
+            del out
+            got = fa.flash_bwd(q5, k4, v4, do5, lse, delta, **mask)
+            torch.cuda.synchronize()
+            want = fa.flash_bwd_reference(q5.float(), k4.float(),
+                                          v4.float(), do5.float(), lse,
+                                          delta, **mask)
+            rtol, atol = GRAD_TOL[str(dtype).split(".")[1]]
+            errs, ok = [], True
+            for g, w in zip(got, want):
+                scale = 1.0 if dtype == torch.float32 \
+                    else float(w.abs().max())
+                errs.append(float((g.float() - w).abs().max()))
+                ok = ok and torch.allclose(g.float(), w, rtol=rtol,
+                                           atol=atol * scale)
+            print(json.dumps({"kernel": "flash_bwd", "case": case,
+                              "dtype": str(dtype),
+                              "max_abs_err_dq_dk_dv": errs, "ok": ok}))
+            if not ok:
+                fail(f"flash_bwd disagrees with its plain version: {case} "
+                     f"{dtype}")
+            if case == TRAIN_CASE and dtype == torch.bfloat16:
+                slice_err = max(errs)
+            del got, want, lse, delta
+    torch.cuda.empty_cache()
+    return slice_err
+
+
+def phase_quant_kernels() -> dict:
+    """Quantize / dequantize vs their plain twins, bit for bit: one layer
+    of the w_gate gradient in bf16 (as the step feeds it) and in fp32, with
+    an all-zero group and a group of exact .5 ties."""
+    import torch
+    from repro_torch.kernels import quantize as qz
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.randn(QUANT_LEAF, generator=gen, device="cuda") * 1e-3
+    groups = x.reshape(-1, qz.GROUP)
+    groups[1] = 0.0
+    groups[2] = torch.randint(-126, 126, (qz.GROUP,), generator=gen,
+                              device="cuda") + 0.5
+    groups[2, 0] = 127.0
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        g = groups.to(dtype)
+        q, sc = qz.quantize(g)
+        back = qz.dequantize(q, sc, dtype)
+        torch.cuda.synchronize()
+        q_ref, sc_ref = qz.quantize_reference(g)
+        back_ref = qz.dequantize_reference(q_ref, sc_ref, dtype)
+        same = {"q": torch.equal(q, q_ref), "scale": torch.equal(sc, sc_ref),
+                "dequantized": torch.equal(back.view(torch.uint8),
+                                           back_ref.view(torch.uint8))}
+        ties_even = torch.equal(
+            q[2, 1:].float(), torch.round(groups[2, 1:].float()))
+        print(json.dumps({"kernel": "quantize/dequantize",
+                          "shape": list(g.shape), "dtype": str(dtype),
+                          "bit_exact": same, "ties_to_even": ties_even,
+                          "zero_group_scale": float(sc[1, 0])}))
+        if not (all(same.values()) and ties_even and float(sc[1, 0]) == 1.0):
+            fail(f"quantize/dequantize disagree with their plain versions "
+                 f"({dtype}): {same}")
+        errs[str(dtype)] = float((back.float() - back_ref.float())
+                                 .abs().max())
+    return errs
 
 
 def phase_slice() -> dict:
@@ -270,6 +392,144 @@ def phase_slice() -> dict:
             "decode_vs_prefill_argmax_agree": argmax_agree}
 
 
+def _counters():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quantize as qz
+    return {"flash_fwd": fa.LAUNCHES, "flash_bwd_dq": fa.BWD_DQ_LAUNCHES,
+            "flash_bwd_dkv": fa.BWD_DKV_LAUNCHES,
+            "quantize": qz.QUANT_LAUNCHES, "dequantize": qz.DEQUANT_LAUNCHES}
+
+
+def _zero_counters() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quantize as qz
+    fa.LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
+    qz.QUANT_LAUNCHES = qz.DEQUANT_LAUNCHES = 0
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
+def train_model_flops(cfg, n_params: int) -> float:
+    """Model FLOPs of one training step (no recompute): 6 per matmul weight
+    per token (the token-embedding lookup is no product), plus the causal
+    attention products, 4 B H D S(S+1)/2 per layer forward, x3 with the
+    backward."""
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    dense = 6.0 * (n_params - cfg.padded_vocab() * cfg.d_model) * B * S
+    attn = 3.0 * cfg.n_layers * 4.0 * B * cfg.n_heads * cfg.head_dim \
+        * S * (S + 1) / 2
+    return dense + attn
+
+
+def phase_train() -> dict:
+    """The training slice at full width through ``make_train_step``."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_model, param_count
+    from repro_torch.train import (global_norm, loss_and_grads,
+                                   make_eval_step, make_train_step, opt_init)
+
+    cfg = dataclasses.replace(get_arch(SLICE_ARCH), attn_impl="flash_pallas",
+                              optimizer="adafactor", grad_compression=True,
+                              remat=True)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_model(gen, cfg, device="cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)}
+    n_params = param_count(params)
+
+    # kernel path vs plain path, same params and batch.  The kernel path's
+    # grads wait on the host while the plain path runs.
+    loss_k, _, grads = loss_and_grads(params, cfg, batch)
+    gnorm_k = float(global_norm(grads))
+    grads_k = {name: g.cpu() for name, g in _leaves(grads)}
+    del grads
+    loss_p, _, grads = loss_and_grads(
+        params, dataclasses.replace(cfg, attn_impl="flash"), batch)
+    gnorm_p = float(global_norm(grads))
+    leaf_rel = {}
+    for name, g in _leaves(grads):
+        gk = grads_k.pop(name).to("cuda")
+        leaf_rel[name] = float((gk.float() - g.float()).norm()
+                               / g.float().norm())
+        del gk
+    del grads, grads_k
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    gnorm_rel = abs(gnorm_k - gnorm_p) / gnorm_p
+    print(json.dumps({"train_kernel_vs_plain": {
+        "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+        "loss_rel": loss_rel, "grad_norm_kernel": gnorm_k,
+        "grad_norm_plain": gnorm_p, "grad_norm_rel": gnorm_rel,
+        "leaf_rel": leaf_rel}}))
+    if not (loss_rel <= TRAIN_LOSS_REL_TOL
+            and gnorm_rel <= TRAIN_GNORM_REL_TOL
+            and all(math.isfinite(v) and v <= TRAIN_LEAF_REL_TOL
+                    for v in leaf_rel.values())):
+        fail("training kernel path vs plain path out of its limits")
+    torch.cuda.empty_cache()
+
+    state = opt_init(cfg.optimizer, params)
+    step = make_train_step(cfg, device="cuda")
+    params, state, m0 = step(params, state, batch)          # warm-up
+    first_loss = float(m0["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: counts to 0, 3 steps, counts read
+    _zero_counters()
+    losses, norms = [], []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED_STEPS):
+        params, state, m = step(params, state, batch)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED_STEPS
+    launches = _counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(x) for x in losses]
+    norms = [float(x) for x in norms]
+    after = float(make_eval_step(cfg, device="cuda")(params, batch))
+
+    L = cfg.n_layers
+    n = TRAIN_TIMED_STEPS
+    want = {"flash_fwd": 2 * L * n, "flash_bwd_dq": L * n,
+            "flash_bwd_dkv": L * n, "quantize": 11 * n, "dequantize": 11 * n}
+    if launches != want:
+        fail(f"training launches {launches}, want {want}")
+    if not all(math.isfinite(x) for x in [first_loss, after, *losses,
+                                          *norms]):
+        fail(f"non-finite training loss or grad norm: {losses} {norms}")
+    if not after < first_loss:
+        fail(f"loss did not fall: first step {first_loss}, after "
+             f"{n} more steps {after}")
+    flops = train_model_flops(cfg, n_params)
+    del params, state
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "params": n_params, "dtype": cfg.param_dtype,
+            "optimizer": cfg.optimizer,
+            "grad_compression": cfg.grad_compression, "remat": cfg.remat,
+            "attn_impl": cfg.attn_impl, "batch": B, "seq": S,
+            "timed_steps": n, "first_loss": first_loss,
+            "step_losses": losses, "grad_norms": norms,
+            "loss_after": after, "step_ms": step_ms,
+            "tokens_per_s": B * S / (step_ms / 1e3), "peak_mem_gb": peak_gb,
+            "model_flops_per_step": flops,
+            "mfu": flops / (step_ms / 1e3) / BF16_FLOP_PER_S,
+            "launches": launches,
+            "kernel_vs_plain": {"loss_rel": loss_rel,
+                                "grad_norm_rel": gnorm_rel,
+                                "max_leaf_rel": max(leaf_rel.values())}}
+
+
 def phase_kernel_times() -> dict:
     """flash_fwd at the slice's shape (bf16, causal): kernel, plain version,
     scaled_dot_product_attention (timed as a yardstick only) and the bound."""
@@ -300,6 +560,118 @@ def phase_kernel_times() -> dict:
             "tflops_per_s": flops / (ms / 1e3) / 1e12}
 
 
+def _profiled_ms(fn, names, iters: int = 5) -> dict:
+    """Device ms per call of each named kernel inside ``fn`` (CUPTI, through
+    torch.profiler), for kernels that one wrapper launches together."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in names:
+        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and name in e.name)
+        if us <= 0:
+            fail(f"the profiler saw no device time for {name}")
+        out[name] = us / 1e3 / iters
+    return out
+
+
+def phase_train_kernel_times() -> dict:
+    """The training slice's new kernels at its shapes: the backward pair at
+    B=2, 32 heads, S=4096, D=128, causal, bf16, and quantize / dequantize
+    over the 11 gradient leaves one step compresses (bf16 in, bf16 out),
+    each beside its bound, its plain twin and the nearest PyTorch call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quantize as qz
+    B, S, Hq, n_kv, D = TRAIN_CASE[:5]
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    (q, k, v), (q5, k4, v4) = make_qkv(TRAIN_CASE, torch.bfloat16, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    do5 = do.reshape(B, S, n_kv, 1, D).permute(0, 2, 3, 1, 4)
+    out5, lse = fa.flash_fwd(q5, k4, v4, causal=True)
+    delta = (do5.float() * out5.float()).sum(-1)
+    fwd_ms = cuda_ms(lambda: fa.flash_fwd(q5, k4, v4, causal=True), iters=5)
+    bwd = lambda: fa.flash_bwd(q5, k4, v4, do5, lse, delta, causal=True)
+    pair_ms = cuda_ms(bwd, iters=5)
+    per = _profiled_ms(bwd, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+    plain_ms = cuda_ms(lambda: fa.flash_bwd_reference(
+        q5, k4, v4, do5, lse, delta, causal=True), iters=2, warmup=1)
+    qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    doh = do.transpose(1, 2)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        sdpa_out, (qh, kh, vh), doh, retain_graph=True), iters=5)
+    # causal triangle: 2 B H D S(S+1)/2 FLOP per product; dq does 3
+    # products, dk/dv 4, the pair only 5 (q.k and dO.v are shared)
+    prod = 2.0 * B * Hq * D * S * (S + 1) / 2
+    elt = q.element_size()
+    io = lambda n_in, n_out: (n_in + n_out) * q.numel() * elt \
+        + 2 * 4 * B * Hq * S                       # + lse, delta fp32
+
+    def bound(flops, nbytes):
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+    dq_bound = bound(3 * prod, io(4, 1))
+    dkv_bound = bound(4 * prod, io(4, 2))
+    pair_bound = bound(5 * prod, io(4, 3))
+    del q, k, v, do, q5, k4, v4, do5, out5, lse, delta, qh, kh, vh
+    del sdpa_out, doh
+    torch.cuda.empty_cache()
+
+    cfg = get_arch(SLICE_ARCH)
+    d, ff, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.padded_vocab()
+    leaves = [(V, d), (d, V), (L, d, d), (L, d, d), (L, d, d), (L, d, d),
+              (L, d, ff), (L, d, ff), (L, ff, d), (L, d), (L, d)]
+    qt = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "elements": 0}
+    dt = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0}
+    for shape in leaves:
+        n = math.prod(shape)
+        x = (torch.randn(shape, generator=gen, device="cuda") * 1e-3) \
+            .to(torch.bfloat16).reshape(-1, qz.GROUP)
+        qq, sc = qz.quantize(x)
+        qt["ms"] += cuda_ms(lambda: qz.quantize(x), iters=5)
+        qt["plain_ms"] += cuda_ms(lambda: qz.quantize_reference(x), iters=2,
+                                  warmup=1)
+        qt["bytes"] += n * 2 + n + 4 * n // qz.GROUP
+        qt["elements"] += n
+        dt["ms"] += cuda_ms(lambda: qz.dequantize(qq, sc, torch.bfloat16),
+                            iters=5)
+        dt["plain_ms"] += cuda_ms(lambda: qz.dequantize_reference(
+            qq, sc, torch.bfloat16), iters=2, warmup=1)
+        dt["library_ms"] += cuda_ms(lambda: qq * sc, iters=5)
+        dt["bytes"] += n + 4 * n // qz.GROUP + n * 2
+        del x, qq, sc
+        torch.cuda.empty_cache()
+    for t in (qt, dt):
+        t["bound_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        t["bound_by"] = "bytes"
+    return {"flash_fwd_train_shape_ms": fwd_ms,
+            "flash_bwd_pair_ms": pair_ms,
+            "flash_bwd_pair_bound_ms": pair_bound[0],
+            "flash_bwd_dq": {"ms": per["flash_bwd_dq_kernel"],
+                             "bound_ms": dq_bound[0],
+                             "bound_by": dq_bound[1]},
+            "flash_bwd_dkv": {"ms": per["flash_bwd_dkv_kernel"],
+                              "bound_ms": dkv_bound[0],
+                              "bound_by": dkv_bound[1]},
+            "flash_bwd_plain_pair_ms": plain_ms,
+            "sdpa_backward_ms": library_ms,
+            "quantize_per_step": qt, "dequantize_per_step": dt}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -316,18 +688,53 @@ def main() -> int:
                       "device": torch.cuda.get_device_name(0)}))
     phase_build()
     slice_err = phase_kernels()
+    bwd_err = phase_bwd_kernels()
+    quant_err = phase_quant_kernels()
     slice_run = phase_slice()
     print(json.dumps({"slice": slice_run, "card": card}))
+    train_run = phase_train()
+    print(json.dumps({"train": train_run, "card": card}))
     times = phase_kernel_times()
     print(json.dumps({"kernel_times": times, "card": card}))
+    tt = phase_train_kernel_times()
+    print(json.dumps({"train_kernel_times": tt, "card": card}))
+    tl = train_run["launches"]
+    bwd_plain = tt["flash_bwd_plain_pair_ms"]  # the twin computes the pair
+    sdpa_bwd = tt["sdpa_backward_ms"]          # likewise
+    qt, dt = tt["quantize_per_step"], tt["dequantize_per_step"]
+    csrc = "src/repro_torch/kernels/csrc/"
     record = {"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
+        "name": "flash_fwd", "route": "cuda", "source": csrc + "flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:92",
-        "launches": slice_run["flash_fwd_launches"],
+        "launches": slice_run["flash_fwd_launches"] + tl["flash_fwd"],
         "max_abs_err": slice_err, "ms": times["ms"],
         "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
-        "bound_by": times["bound_by"], "library_ms": times["library_ms"]}]}
+        "bound_by": times["bound_by"], "library_ms": times["library_ms"]}, {
+        "name": "flash_bwd_dq", "route": "cuda", "source": csrc + "flash_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:222",
+        "launches": tl["flash_bwd_dq"], "max_abs_err": bwd_err,
+        "ms": tt["flash_bwd_dq"]["ms"], "plain_ms": bwd_plain,
+        "bound_ms": tt["flash_bwd_dq"]["bound_ms"],
+        "bound_by": tt["flash_bwd_dq"]["bound_by"], "library_ms": sdpa_bwd}, {
+        "name": "flash_bwd_dkv", "route": "cuda",
+        "source": csrc + "flash_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:243",
+        "launches": tl["flash_bwd_dkv"], "max_abs_err": bwd_err,
+        "ms": tt["flash_bwd_dkv"]["ms"], "plain_ms": bwd_plain,
+        "bound_ms": tt["flash_bwd_dkv"]["bound_ms"],
+        "bound_by": tt["flash_bwd_dkv"]["bound_by"], "library_ms": sdpa_bwd}, {
+        "name": "quantize", "route": "cuda", "source": csrc + "quantize.cu",
+        "replaces": "src/repro/kernels/quantize.py:37",
+        "launches": tl["quantize"], "max_abs_err": 0.0,
+        "ms": qt["ms"], "plain_ms": qt["plain_ms"],
+        "bound_ms": qt["bound_ms"], "bound_by": qt["bound_by"],
+        "library_ms": None}, {
+        "name": "dequantize", "route": "cuda", "source": csrc + "quantize.cu",
+        "replaces": "src/repro/kernels/quantize.py:58",
+        "launches": tl["dequantize"], "max_abs_err": max(quant_err.values()),
+        "ms": dt["ms"], "plain_ms": dt["plain_ms"],
+        "bound_ms": dt["bound_ms"], "bound_by": dt["bound_by"],
+        "library_ms": dt["library_ms"]}]}
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Where the serving slice's time goes on the card.
+"""Where the serving and training slices' time goes on the card.
 
     PYTHONPATH=src python3 scripts/profile_slice.py [--decode-steps 4]
 
-Builds the slice that chip_smoke.py drives (deepseek-7b at full width,
-bf16, random weights from a seeded generator, ``attn_impl="flash_pallas"``,
-B=4 prompts of 1024 tokens), warms it up, then traces one prefill and a few
-greedy decode steps with ``torch.profiler`` (CPU and CUDA activities).  For
-each phase it prints one JSON line: the host-clock wall time with and
-without the profiler, the device's busy time (the union of kernel
-intervals) and idle share, and device time by kernel category and by
-kernel name.  Needs a CUDA card.
+Builds the slices that chip_smoke.py drives (deepseek-7b at full width,
+bf16, random weights from a seeded generator, ``attn_impl="flash_pallas"``):
+serving is B=4 prompts of 1024 tokens, one prefill and a few greedy decode
+steps; training is one ``make_train_step`` step (Adafactor, int8 gradient
+compression, remat) on B=2 x 4096 tokens.  Each phase is warmed up, timed
+once without the profiler, then traced with ``torch.profiler`` (CPU and
+CUDA activities).  For each phase it prints one JSON line: the host-clock
+wall time with and without the profiler, the device's busy time (the union
+of kernel intervals) and idle share, launches, and device time by kernel
+category and by kernel name.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -27,6 +29,10 @@ ROOT = Path(__file__).resolve().parents[1]
 
 CATEGORIES = (
     ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("dequantize", ("dequantize_kernel",)),
+    ("quantize", ("quantize_kernel",)),
     ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "splitk")),
     ("reduce", ("reduce", "softmax", "argmax", "norm")),
     ("copy_cast", ("copy", "cat", "fill")),
@@ -78,6 +84,62 @@ def summarize(phase: str, prof, wall_ms: float, plain_wall_ms: float,
             "top_kernels_ms": [[n[:120], v / 1e3] for n, v in top]}
 
 
+def profile_serve(params, cfg, gen, decode_steps, timed, traced, card):
+    import torch
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    B, S = 4, 1024
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    prefill = make_prefill_step(cfg, pad_to=S + 32, device="cuda")
+    decode = make_decode_step(cfg, device="cuda")
+
+    def run_prefill():
+        return prefill(params, {"tokens": prompts})
+
+    def run_decode(cache, tok):
+        for t in range(decode_steps):
+            tok, _, cache = decode(params, cache, tok, S + t)
+        return cache, tok
+
+    logits, cache = run_prefill()                       # warm-up
+    tok0 = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    run_decode(cache, tok0)
+    del cache
+
+    (_, cache), plain_ms = timed(run_prefill)
+    del cache
+    (_, cache), wall_ms, prof = traced(run_prefill)
+    print(json.dumps(summarize("prefill", prof, wall_ms, plain_ms, card)))
+
+    _, plain_ms = timed(lambda: run_decode(cache, tok0))
+    _, wall_ms, prof = traced(lambda: run_decode(cache, tok0))
+    dec = summarize(f"decode x{decode_steps}", prof, wall_ms, plain_ms,
+                    card)
+    dec["decode_ms_per_step_unprofiled"] = plain_ms / decode_steps
+    print(json.dumps(dec))
+    del cache
+    torch.cuda.empty_cache()
+
+
+def profile_train(params, cfg, gen, timed, traced, card):
+    import torch
+    from repro_torch.train import make_train_step, opt_init
+    cfg = dataclasses.replace(cfg, optimizer="adafactor",
+                              grad_compression=True, remat=True)
+    B, S = 2, 4096
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)}
+    state = opt_init(cfg.optimizer, params)
+    step = make_train_step(cfg, device="cuda")
+    run = lambda: step(params, state, batch)
+    run()                                               # warm-up
+    _, plain_ms = timed(run)
+    _, wall_ms, prof = traced(run)
+    print(json.dumps(summarize(f"train step ({B}x{S})", prof, wall_ms,
+                               plain_ms, card)))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--decode-steps", type=int, default=4)
@@ -91,7 +153,6 @@ def main() -> int:
 
     from repro_torch.configs import get_arch
     from repro_torch.models import init_model
-    from repro_torch.serve import make_decode_step, make_prefill_step
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -99,21 +160,8 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     cfg = dataclasses.replace(get_arch("deepseek-7b"),
                               attn_impl="flash_pallas")
-    B, S = 4, 1024
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_model(gen, cfg, device="cuda")
-    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
-                            device="cuda", dtype=torch.int32)
-    prefill = make_prefill_step(cfg, pad_to=S + 32, device="cuda")
-    decode = make_decode_step(cfg, device="cuda")
-
-    def run_prefill():
-        return prefill(params, {"tokens": prompts})
-
-    def run_decode(cache, tok):
-        for t in range(args.decode_steps):
-            tok, _, cache = decode(params, cache, tok, S + t)
-        return cache, tok
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -122,26 +170,14 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
-    logits, cache = run_prefill()                       # warm-up
-    tok0 = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
-    run_decode(cache, tok0)
-    del cache
+    def traced(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out, wall_ms = timed(fn)
+        return out, wall_ms, prof
 
-    (_, cache), plain_ms = timed(run_prefill)
-    del cache
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        (_, cache), wall_ms = timed(run_prefill)
-    print(json.dumps(summarize("prefill", prof, wall_ms, plain_ms, card)))
-
-    _, plain_ms = timed(lambda: run_decode(cache, tok0))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, wall_ms = timed(lambda: run_decode(cache, tok0))
-    dec = summarize(f"decode x{args.decode_steps}", prof, wall_ms, plain_ms,
-                    card)
-    dec["decode_ms_per_step_unprofiled"] = plain_ms / args.decode_steps
-    print(json.dumps(dec))
+    profile_serve(params, cfg, gen, args.decode_steps, timed, traced, card)
+    profile_train(params, cfg, gen, timed, traced, card)
     return 0
 
 

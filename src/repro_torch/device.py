@@ -18,3 +18,11 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"{device} requested but no CUDA device is "
                            "available")
     return device
+
+
+def require_on(device: torch.device, tokens: torch.Tensor) -> None:
+    """A step bound to ``device`` refuses tokens that lie elsewhere rather
+    than quietly running there."""
+    if tokens.device.type != device.type:
+        raise ValueError(f"step bound to {device}, tokens on "
+                         f"{tokens.device}")

@@ -1,11 +1,15 @@
-"""Flash-attention forward: the Hopper kernel's wrapper and its plain twin.
+"""Flash attention, forward and backward: the Hopper kernels' wrappers and
+their plain twins.
 
-``flash_fwd`` is the counterpart of the JAX package's ``flash_fwd_pallas``
-(kernels/flash_attention.py) with the same signature and 5-D layout.  On a
-CUDA tensor it launches ``csrc/flash_fwd.cu`` (built by ``build.py``) or
-raises; on a CPU tensor it computes ``flash_fwd_reference``, which
-``chip_smoke.py`` also uses as the on-card oracle.  ``LAUNCHES`` counts
-kernel launches and nothing else.
+``flash_fwd`` and ``flash_bwd`` are the counterparts of the JAX package's
+``flash_fwd_pallas`` and ``flash_bwd_pallas`` (kernels/flash_attention.py)
+with the same 5-D layout.  On a CUDA tensor each launches its kernels
+(``csrc/flash_fwd.cu``; ``csrc/flash_bwd.cu``, a dq pass and a dk/dv pass)
+or raises; on a CPU tensor each computes its plain twin
+(``flash_fwd_reference``, ``flash_bwd_reference``), which ``chip_smoke.py``
+also uses as the on-card oracle.  ``LAUNCHES`` (forward),
+``BWD_DQ_LAUNCHES`` and ``BWD_DKV_LAUNCHES`` count kernel launches and
+nothing else.
 """
 from __future__ import annotations
 
@@ -21,6 +25,28 @@ MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = 0
+BWD_DQ_LAUNCHES = 0
+BWD_DKV_LAUNCHES = 0
+
+
+def _allow(S, Sk, causal, window, prefix, device):
+    qi = torch.arange(S, device=device)[:, None]
+    ki = torch.arange(Sk, device=device)[None, :]
+    allow = torch.ones((S, Sk), dtype=torch.bool, device=device)
+    if causal:
+        allow &= ki <= qi
+    if window:
+        allow &= (qi - ki) < window
+    if prefix:
+        allow |= ki < prefix
+    return allow
+
+
+def _masked_scores(q, k, causal, window, prefix, scale):
+    """fp32 scores ``q.k * scale`` with the finite -1e30 mask sentinel."""
+    s = torch.einsum("bhgqd,bhkd->bhgqk", q.float(), k.float()) * scale
+    allow = _allow(q.shape[3], k.shape[2], causal, window, prefix, q.device)
+    return s.masked_fill(~allow, NEG)
 
 
 def flash_fwd_reference(q, k, v, *, causal=True, window=0, prefix=0,
@@ -28,26 +54,34 @@ def flash_fwd_reference(q, k, v, *, causal=True, window=0, prefix=0,
     """Plain torch with the TPU kernel's arithmetic: fp32 scores with the
     finite -1e30 mask sentinel, fp32 softmax and P.V, ``out`` cast to q's
     dtype, fp32 ``lse``."""
-    B, H, G, S, D = q.shape
-    Sk = k.shape[2]
+    D = q.shape[-1]
     scale = scale if scale else 1.0 / math.sqrt(D)
-    qf, kf, vf = q.float(), k.float(), v.float()
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * scale
-    qi = torch.arange(S, device=q.device)[:, None]
-    ki = torch.arange(Sk, device=q.device)[None, :]
-    allow = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        allow &= ki <= qi
-    if window:
-        allow &= (qi - ki) < window
-    if prefix:
-        allow |= ki < prefix
-    s = s.masked_fill(~allow, NEG)
+    vf = v.float()
+    s = _masked_scores(q, k, causal, window, prefix, scale)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     l = torch.clamp(p.sum(dim=-1), min=1e-30)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, vf) / l[..., None]
     return out.to(q.dtype), m + torch.log(l)
+
+
+def flash_bwd_reference(q, k, v, do, lse, delta, *, causal=True, window=0,
+                        prefix=0, scale=None):
+    """Plain torch with the TPU kernels' arithmetic, in fp32: p recomputed
+    from ``lse``, ``ds = p * (dO.v - delta) * scale``, dq = ds.k, and dk/dv
+    summed over the G query groups.  Returns (dq, dk, dv) in q's, k's and
+    v's dtypes."""
+    D = q.shape[-1]
+    scale = scale if scale else 1.0 / math.sqrt(D)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = _masked_scores(q, k, causal, window, prefix, scale)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf)
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q, k, v):
@@ -70,6 +104,14 @@ def _check(q, k, v):
                          f"k {tuple(k.shape)} (head dim <= {MAX_HEAD_DIM})")
 
 
+def _check_cuda(*ts):
+    if ts[0].device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not "
+                         f"{ts[0].device}")
+    if any(t.stride(-1) != 1 for t in ts):
+        raise ValueError("flash attention needs a contiguous last dimension")
+
+
 def flash_fwd(q, k, v, *, causal=True, window=0, prefix=0, scale=None):
     """q: (B, n_kv, G, S, D); k, v: (B, n_kv, Sk, D), any strides with a
     contiguous last dimension.  Returns (out (B, n_kv, G, S, D) in q's
@@ -78,10 +120,7 @@ def flash_fwd(q, k, v, *, causal=True, window=0, prefix=0, scale=None):
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, causal=causal, window=window,
                                    prefix=prefix, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd runs on cuda or cpu, not {q.device}")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("flash_fwd needs a contiguous last dimension")
+    _check_cuda(q, k, v)
     B, H, G, S, D = q.shape
     Sk = k.shape[2]
     # out lives in (B, S, n_kv, G, D) memory, so the model's (B, S, Hq, D)
@@ -92,7 +131,7 @@ def flash_fwd(q, k, v, *, causal=True, window=0, prefix=0, scale=None):
     dims = (ctypes.c_int64 * 6)(B, H, G, S, Sk, D)
     strides = (ctypes.c_int64 * 14)(*q.stride()[:4], *k.stride()[:3],
                                     *v.stride()[:3], *out.stride()[:4])
-    fn = _kernel()
+    fn = _fwd_kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -106,11 +145,77 @@ def flash_fwd(q, k, v, *, causal=True, window=0, prefix=0, scale=None):
     return out, lse
 
 
-def _kernel():
+def flash_bwd(q, k, v, do, lse, delta, *, causal=True, window=0, prefix=0,
+              scale=None):
+    """Gradients of ``flash_fwd``.  q, do: (B, n_kv, G, S, D); k, v:
+    (B, n_kv, Sk, D), any strides with a contiguous last dimension; lse,
+    delta: (B, n_kv, G, S) fp32, ``delta = rowsum(dO * O)``.  Returns (dq in
+    q's layout and dtype, dk, dv (B, n_kv, Sk, D) in k's and v's dtypes)."""
+    _check(q, k, v)
+    B, H, G, S, D = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"do must match q: {tuple(do.shape)} {do.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (B, H, G, S) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be fp32 {(B, H, G, S)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if not q.device == do.device == lse.device == delta.device:
+        raise ValueError("flash_bwd's inputs lie on different devices")
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, do, lse, delta, causal=causal,
+                                   window=window, prefix=prefix, scale=scale)
+    _check_cuda(q, k, v, do)
+    lse, delta = lse.contiguous(), delta.contiguous()
+    Sk = k.shape[2]
+    # dq lives in (B, S, n_kv, G, D) memory and dk/dv in (B, Sk, n_kv, D),
+    # so the model's (B, S, H, D) views of them are free.
+    dq = torch.empty((B, S, H, G, D), dtype=q.dtype,
+                     device=q.device).permute(0, 2, 3, 1, 4)
+    dk = torch.empty((B, Sk, H, D), dtype=k.dtype,
+                     device=q.device).permute(0, 2, 1, 3)
+    dv = torch.empty((B, Sk, H, D), dtype=v.dtype,
+                     device=q.device).permute(0, 2, 1, 3)
+    dims = (ctypes.c_int64 * 6)(B, H, G, S, Sk, D)
+    strides = (ctypes.c_int64 * 24)(
+        *q.stride()[:4], *k.stride()[:3], *v.stride()[:3], *do.stride()[:4],
+        *dq.stride()[:4], *dk.stride()[:3], *dv.stride()[:3])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dims, strides, _DTYPE_CODES[q.dtype], int(causal),
+            int(window), int(prefix),
+            float(scale if scale else 1.0 / math.sqrt(D)))
+    global BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _bwd_kernel("flash_bwd_dq")(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"flash_bwd dq kernel launch failed: "
+                               f"cudaError {err}")
+        BWD_DQ_LAUNCHES += 1
+        err = _bwd_kernel("flash_bwd_dkv")(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"flash_bwd dk/dv kernel launch failed: "
+                               f"cudaError {err}")
+        BWD_DKV_LAUNCHES += 1
+    return dq, dk, dv
+
+
+def _fwd_kernel():
     fn = build.load("flash_fwd").flash_fwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_void_p]
+    return fn
+
+
+def _bwd_kernel(name):
+    fn = getattr(build.load("flash_bwd"), name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 9 + [
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_void_p]

@@ -10,6 +10,7 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..device import resolve_device
+from ..tree import tree_leaves
 from . import decode as D
 from . import transformer as T
 from .decode import TensorSpec
@@ -31,9 +32,7 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, tp_pad: int = 1,
 
 
 def param_count(params: Params) -> int:
-    if isinstance(params, dict):
-        return sum(param_count(v) for v in params.values())
-    return params.numel()
+    return sum(p.numel() for p in tree_leaves(params))
 
 
 def text_len(cfg: ModelConfig, seq_len: int) -> int:

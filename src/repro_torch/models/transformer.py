@@ -2,18 +2,22 @@
 
 Counterpart of the JAX package's models/transformer.py.  Layer params are
 stacked with a leading ``L`` dim, as in JAX; ``lax.scan`` over the stack
-becomes a Python loop over ``params["blocks"][...][i]``.  The families this
-port has not reached yet (moe, ssm, hybrid, encdec, vlm) raise
-``NotImplementedError`` when a model is built for them.
+becomes a Python loop over ``params["blocks"][...][i]``, and the scan's
+per-block ``jax.checkpoint`` (``cfg.remat``) a per-layer
+``torch.utils.checkpoint``.  The families this port has not reached yet
+(moe, ssm, hybrid, encdec, vlm) raise ``NotImplementedError`` when a model
+is built for them.
 
-  forward_train(params, cfg, batch) -> (hidden, aux_loss)   (forward only)
+  forward_train(params, cfg, batch) -> (hidden, aux_loss)
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..tree import tree_map
 from . import layers as L
 from .attention_flash import blockwise_attention
 
@@ -42,21 +46,15 @@ def _block_init(gen: torch.Generator, cfg, kind: str, tp_pad: int) -> Params:
             "norm2": ones(), "mlp": L.init_mlp(gen, cfg)}
 
 
-def _map(fn, *trees):
-    if isinstance(trees[0], dict):
-        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
-
-
 def _stack(gen: torch.Generator, cfg, kind: str, n: int,
            tp_pad: int) -> Params:
     """n layers' params stacked on a leading dim, filled layer by layer so
     that only one layer exists outside the stack at a time."""
     first = _block_init(gen, cfg, kind, tp_pad)
-    out = _map(lambda a: a.new_empty((n, *a.shape)), first)
+    out = tree_map(lambda a: a.new_empty((n, *a.shape)), first)
 
     def put(i, layer):
-        _map(lambda dst, src: dst[i].copy_(src), out, layer)
+        tree_map(lambda dst, src: dst[i].copy_(src), out, layer)
 
     put(0, first)
     del first
@@ -89,7 +87,30 @@ def init_model(gen: torch.Generator, cfg, tp_pad: int = 1) -> Params:
 
 def layer(stack: Params, i: int) -> Params:
     """Layer ``i``'s params: views into the stacked tensors."""
-    return _map(lambda a: a[i], stack)
+    return tree_map(lambda a: a[i], stack)
+
+
+def _grad_slot(a: torch.Tensor, i: int) -> torch.Tensor:
+    """Layer ``i`` of a stacked leaf as a leaf of its own whose gradient is
+    added into ``a.grad[i]`` as soon as it is ready, then dropped.
+
+    Autograd's backward of the view ``a[i]`` would write a zero tensor of
+    ``a``'s full size for every layer (30 x 12.1 GB per step at
+    deepseek-7b's full width); this writes each layer's slice once and
+    keeps one layer's gradient alive at a time.  ``a.grad`` is allocated
+    (zeros) by the first layer's gradient and accumulates like any
+    ``.grad``."""
+    if not a.requires_grad:
+        return a[i]
+    t = a[i].detach().requires_grad_()
+
+    def flush(t):
+        if a.grad is None:
+            a.grad = torch.zeros_like(a)
+        a.grad[i].add_(t.grad)
+        t.grad = None
+    t.register_post_accumulate_grad_hook(flush)
+    return t
 
 
 # ======================================================================
@@ -114,8 +135,9 @@ def _apply_attn_block(p: Params, x, cfg, positions, *, n_heads, window=0,
                                   window=window, prefix=prefix,
                                   bq=cfg.flash_bq, bk=cfg.flash_bk)
     elif cfg.attn_impl == "flash_cvjp":
-        raise NotImplementedError("attn_impl='flash_cvjp' comes with the "
-                                  "training slice (attention_flash_vjp)")
+        from .attention_flash_vjp import flash_attention
+        out = flash_attention(q, k, v, cfg.n_kv_heads, causal, window,
+                              prefix, cfg.flash_bq, cfg.flash_bk)
     else:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     x = x + out.reshape(B, Sq, -1) @ p["attn"]["wo"]
@@ -164,17 +186,34 @@ def _embed_inputs(params, cfg, batch):
 
 
 def forward_train(params: Params, cfg, batch, n_groups: int = 1):
-    """-> (hidden (B,S,d), aux_loss).  A forward pass only: the gradient
-    path comes with the training slice."""
+    """-> (hidden (B,S,d), aux_loss).
+
+    Differentiable in the params that require grad: a backward pass leaves
+    each leaf's gradient in its ``.grad``, the stacked block leaves
+    included (filled layer by layer, see ``_grad_slot``).  With
+    ``cfg.remat`` each layer is checkpointed, so only its input is kept
+    and its forward runs again during the backward pass."""
     _require_ported(cfg)
     n_heads = params_n_heads(params, cfg)
     x, positions = _embed_inputs(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, aux_i, _ = _dense_block(layer(params["blocks"], i), x, cfg,
-                                   positions, n_heads=n_heads,
+    grad = torch.is_grad_enabled()
+
+    def block(lp, xx):
+        y, aux_i, _ = _dense_block(lp, xx, cfg, positions, n_heads=n_heads,
                                    window=cfg.swa_window, prefix=0,
                                    n_groups=n_groups)
+        return y, aux_i
+
+    for i in range(cfg.n_layers):
+        if grad:
+            lp = tree_map(lambda a: _grad_slot(a, i), params["blocks"])
+        else:
+            lp = layer(params["blocks"], i)
+        if grad and cfg.remat:
+            x, aux_i = checkpoint(block, lp, x, use_reentrant=False)
+        else:
+            x, aux_i = block(lp, x)
         aux = aux + aux_i
     return x, aux
 

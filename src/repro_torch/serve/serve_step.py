@@ -12,15 +12,9 @@ import time
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import require_on, resolve_device
 from ..models import forward_decode, forward_prefill
 from ..models import layers as L
-
-
-def _on(device: torch.device, tokens: torch.Tensor) -> None:
-    if tokens.device.type != device.type:
-        raise ValueError(f"step bound to {device}, tokens on "
-                         f"{tokens.device}")
 
 
 def make_prefill_step(cfg, pad_to: int | None = None, device=None):
@@ -28,7 +22,7 @@ def make_prefill_step(cfg, pad_to: int | None = None, device=None):
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        _on(device, batch["tokens"])
+        require_on(device, batch["tokens"])
         hidden, cache = forward_prefill(params, cfg, batch, pad_to=pad_to)
         logits = L.lm_logits(params["embed"], hidden[:, -1:])
         return logits, cache
@@ -41,7 +35,7 @@ def make_decode_step(cfg, greedy: bool = True, device=None):
     @torch.no_grad()
     def decode_step(params, cache, tokens, pos):
         """The cache is updated in place and returned."""
-        _on(device, tokens)
+        require_on(device, tokens)
         hidden, cache = forward_decode(params, cfg, cache, tokens, pos)
         logits = L.lm_logits(params["embed"], hidden)
         if greedy:

@@ -29,7 +29,10 @@ def _run(args, cwd, timeout=120):
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     mods = list(_modules())
-    assert "repro_torch.kernels.flash_attention" in mods
+    for m in ("repro_torch.kernels.flash_attention",
+              "repro_torch.kernels.quantize", "repro_torch.train.train_step",
+              "repro_torch.models.attention_flash_vjp"):
+        assert m in mods
     code = "\n".join([
         "import importlib, importlib.util, sys",
         f"sys.path.insert(0, {str(ROOT / 'src')!r})",
@@ -48,12 +51,13 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
 
 @pytest.mark.parametrize("call", ["init_model", "make_inputs", "init_cache",
                                   "make_prefill_step", "make_decode_step",
-                                  "measure_decode_s"])
+                                  "measure_decode_s", "make_train_step",
+                                  "make_eval_step"])
 def test_entry_points_refuse_cpu_without_being_asked(call):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     from repro_torch.configs import ARCHS, ShapeConfig, smoke_variant
-    from repro_torch import models, serve
+    from repro_torch import models, serve, train
     cfg = smoke_variant(ARCHS["deepseek-7b"])
     gen = torch.Generator().manual_seed(0)
     calls = {
@@ -64,19 +68,27 @@ def test_entry_points_refuse_cpu_without_being_asked(call):
         "make_prefill_step": lambda: serve.make_prefill_step(cfg),
         "make_decode_step": lambda: serve.make_decode_step(cfg),
         "measure_decode_s": lambda: serve.measure_decode_s(),
+        "make_train_step": lambda: train.make_train_step(cfg),
+        "make_eval_step": lambda: train.make_eval_step(cfg),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[call]()
 
 
-def test_step_refuses_tokens_on_another_device():
+@pytest.mark.parametrize("factory", ["make_prefill_step", "make_train_step",
+                                     "make_eval_step"])
+def test_step_refuses_tokens_on_another_device(factory):
+    from repro_torch import serve, train
     from repro_torch.configs import ARCHS, smoke_variant
-    from repro_torch.serve import make_prefill_step
     cfg = smoke_variant(ARCHS["deepseek-7b"])
-    step = make_prefill_step(cfg, device="cpu")
+    make = getattr(serve, factory, None) or getattr(train, factory)
+    step = make(cfg, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="step bound to"):
-        step({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32,
-                                        device="meta")})
+        if factory == "make_train_step":
+            step({}, {}, {"tokens": tokens})
+        else:
+            step({}, {"tokens": tokens})
 
 
 @pytest.mark.parametrize("family_arch", ["qwen3-moe-235b-a22b", "mamba2-370m",
@@ -91,16 +103,21 @@ def test_unported_families_raise(family_arch):
                    smoke_variant(ARCHS[family_arch]), device="cpu")
 
 
-def test_flash_cvjp_waits_for_training_slice():
+def test_flash_cvjp_runs_and_matches_flash():
+    """``attn_impl="flash_cvjp"`` is ported: forward_train through it gives
+    the blockwise path's hidden states (fp32, summation order only)."""
     import dataclasses
     from repro_torch.configs import ARCHS, smoke_variant
     from repro_torch.models import forward_train, init_model
-    cfg = dataclasses.replace(smoke_variant(ARCHS["deepseek-7b"]),
-                              attn_impl="flash_cvjp")
+    cfg = smoke_variant(ARCHS["deepseek-7b"])
     params = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        forward_train(params, cfg,
-                      {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24),
+                           generator=torch.Generator().manual_seed(1))
+    h = {impl: forward_train(params, dataclasses.replace(cfg, attn_impl=impl),
+                             {"tokens": tokens})[0]
+         for impl in ("flash", "flash_cvjp")}
+    torch.testing.assert_close(h["flash_cvjp"], h["flash"], rtol=1e-4,
+                               atol=1e-4)
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the card, against their plain torch versions.
+"""The port's CUDA kernels on the card, against their plain torch versions:
+flash attention forward and backward, int8 quantize / dequantize, and the
+kernel paths of prefill and of a training step.
 
 These need an NVIDIA card and ``nvcc`` (the kernels are built at first use)
 and skip elsewhere.  Run them on the card with
@@ -10,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import quantize as qz
 
 pytestmark = pytest.mark.gpu
 
@@ -26,6 +29,10 @@ CASES = [
 # fp32: the reference tests' 3e-4.  bf16: fp32 inside, `out` rounded once
 # to bf16 (2^-8 relative).
 TOL = {torch.float32: 3e-4, torch.bfloat16: 1e-2}
+# Gradients.  fp32: the reference tests' 4e-3.  bf16: fp32 inside, each of
+# dq/dk/dv rounded once to bf16 (2^-8 relative), held at 1e-2 relative
+# plus 1e-2 of the largest |gradient| (sums over thousands of keys cancel).
+GRAD_TOL = {torch.float32: (4e-3, 4e-3), torch.bfloat16: (1e-2, 1e-2)}
 
 
 @pytest.fixture
@@ -82,3 +89,129 @@ def test_prefill_through_the_kernel_matches_blockwise(cuda):
         {"tokens": tokens})
     torch.testing.assert_close(h_kernel, h_plain, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(c_kernel["k"], c_plain["k"])
+
+
+def _bwd_inputs(case, dtype, cuda):
+    B, S, Hq, n_kv, D, causal, window, prefix = case
+    gen = torch.Generator(device=cuda).manual_seed(S + D)
+    mk = lambda *shape: torch.randn(shape, generator=gen, device=cuda) \
+        .to(dtype)
+    q, do = mk(B, S, Hq, D), mk(B, S, Hq, D)
+    k, v = mk(B, S, n_kv, D), mk(B, S, n_kv, D)
+    five = lambda x: x.reshape(B, S, n_kv, Hq // n_kv, D) \
+        .permute(0, 2, 3, 1, 4)
+    q5, do5 = five(q), five(do)
+    k4, v4 = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    mask = dict(causal=causal, window=window, prefix=prefix)
+    out, lse = fa.flash_fwd_reference(q5, k4, v4, **mask)
+    delta = (do5.float() * out.float()).sum(-1)
+    return (q5, k4, v4, do5, lse, delta), mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CASES)
+def test_flash_bwd_kernels_match_plain_version(cuda, case, dtype):
+    args, mask = _bwd_inputs(case, dtype, cuda)
+    before = (fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+    got = fa.flash_bwd(*args, **mask)
+    torch.cuda.synchronize()
+    assert (fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    q5, k4, v4, do5, lse, delta = args
+    want = fa.flash_bwd_reference(q5.float(), k4.float(), v4.float(),
+                                  do5.float(), lse, delta, **mask)
+    rtol, atol = GRAD_TOL[dtype]
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype and g.shape == w.shape
+        scale = 1.0 if dtype == torch.float32 else float(w.abs().max())
+        torch.testing.assert_close(g.float(), w, rtol=rtol,
+                                   atol=atol * scale, msg=name)
+
+
+def _groups(cuda, dtype, n_groups=64):
+    gen = torch.Generator(device=cuda).manual_seed(n_groups)
+    x = torch.randn((n_groups, qz.GROUP), generator=gen, device=cuda) * 3
+    x[1] = 0.0                                     # all-zero group
+    x[2] = torch.randint(-126, 126, (qz.GROUP,), generator=gen,
+                         device=cuda) + 0.5        # exact .5 ties
+    x[2, 0] = 127.0
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kernels_bit_exact_with_plain_version(cuda, dtype):
+    x = _groups(cuda, dtype)
+    before = (qz.QUANT_LAUNCHES, qz.DEQUANT_LAUNCHES)
+    q, s = qz.quantize(x)
+    back = qz.dequantize(q, s)
+    back16 = qz.dequantize(q, s, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (qz.QUANT_LAUNCHES, qz.DEQUANT_LAUNCHES) == \
+        (before[0] + 1, before[1] + 2)
+    q_ref, s_ref = qz.quantize_reference(x)
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    assert float(s[1, 0]) == 1.0 and not bool(q[1].any())
+    assert torch.equal(back, qz.dequantize_reference(q_ref, s_ref))
+    assert torch.equal(back16.view(torch.int16),
+                       qz.dequantize_reference(q_ref, s_ref, torch.bfloat16)
+                       .view(torch.int16))
+
+
+def test_kernel_path_grads_match_blockwise(cuda):
+    """The autograd Function on the card: forward and both backward
+    kernels, against autograd through the plain blockwise path (fp32)."""
+    from repro_torch.kernels.ops import flash_attention
+    from repro_torch.models.attention_flash import blockwise_attention
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    B, S, Hq, n_kv, D = 2, 200, 8, 2, 64
+    q, k, v, do = (torch.randn(shape, generator=gen, device=cuda)
+                   for shape in ((B, S, Hq, D), (B, S, n_kv, D),
+                                 (B, S, n_kv, D), (B, S, Hq, D)))
+    grads = {}
+    for name, fn in (("kernel", lambda *a: flash_attention(*a, n_kv, True)),
+                     ("plain", lambda *a: blockwise_attention(
+                         *a, n_kv, causal=True, bq=40, bk=40))):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*ts)
+        if name == "kernel":
+            assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+        out.backward(do)
+        grads[name] = [t.grad for t in ts]
+    for a, b, name in zip(grads["kernel"], grads["plain"], "qkv"):
+        torch.testing.assert_close(a, b, rtol=4e-3, atol=4e-3, msg=name)
+
+
+def test_train_step_launches_every_kernel(cuda):
+    """One smoke train step with remat and compression on the card: each
+    kernel launches as often as the path needs, and the loss and updated
+    params agree with the same step on the CPU (plain twins)."""
+    from repro_torch.configs import ARCHS, smoke_variant
+    from repro_torch.models import init_model
+    from repro_torch.train import make_train_step, opt_init
+    cfg = dataclasses.replace(smoke_variant(ARCHS["deepseek-7b"]),
+                              attn_impl="flash_pallas", remat=True,
+                              optimizer="adafactor", grad_compression=True)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    params_cpu = init_model(gen, cfg, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                           dtype=torch.int32)
+    to = lambda t: {k: to(v) for k, v in t.items()} \
+        if isinstance(t, dict) else t.to(cuda)
+    params = to(params_cpu)
+    step_gpu = make_train_step(cfg, device=cuda)
+    state_gpu = opt_init(cfg.optimizer, params)
+    counters = lambda: (fa.LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES,
+                        qz.QUANT_LAUNCHES, qz.DEQUANT_LAUNCHES)
+    before = counters()
+    _, _, m_gpu = step_gpu(params, state_gpu, {"tokens": tokens.to(cuda)})
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    n_big = 9          # leaves of >= 8192 elements at this smoke size
+    assert [a - b for a, b in zip(counters(), before)] == \
+        [2 * L, L, L, n_big, n_big]
+    state_cpu = opt_init(cfg.optimizer, params_cpu)
+    _, _, m_cpu = make_train_step(cfg, device="cpu")(
+        params_cpu, state_cpu, {"tokens": tokens})
+    assert abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) < 1e-4
+    assert abs(float(m_gpu["grad_norm"]) / float(m_cpu["grad_norm"])
+               - 1) < 1e-3
