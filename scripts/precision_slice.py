@@ -30,6 +30,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_arch
     from repro_torch.models import forward_prefill, init_model
+    from repro_torch.tree import tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(
@@ -53,12 +54,7 @@ def main() -> int:
     runs = {f"bf16_{impl}": last_hidden(params, attn_impl=impl)
             for impl in ("flash_pallas", "flash")}
 
-    def upcast(tree):
-        if isinstance(tree, dict):
-            return {k: upcast(v) for k, v in tree.items()}
-        return tree.float()
-
-    params = upcast(params)
+    params = tree_map(lambda x: x.float(), params)
     for impl in ("flash_pallas", "flash"):
         runs[f"fp32_{impl}"] = last_hidden(params, attn_impl=impl,
                                            param_dtype="float32")

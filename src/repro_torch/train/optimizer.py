@@ -20,7 +20,7 @@ import dataclasses
 
 import torch
 
-from ..tree import tree_leaves, tree_map
+from ..tree import layer_slices, tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,12 +38,6 @@ class OptConfig:
 
 def _device(params) -> torch.device:
     return next(tree_leaves(params)).device
-
-
-def _layers(p: torch.Tensor):
-    """Per-layer index expressions of a stacked leaf (>= 3 dims), or the
-    whole leaf."""
-    return range(p.shape[0]) if p.dim() >= 3 else (Ellipsis,)
 
 
 def _f32(x: float, device) -> torch.Tensor:
@@ -68,7 +62,7 @@ def adamw_update(grads, state, params, oc: OptConfig):
     bc2 = 1 - _f32(b2, cf.device) ** cf
 
     def upd(g, m, v, p):
-        for i in _layers(p):
+        for i in layer_slices(p):
             gi = g[i].float()
             m2 = b1 * m[i] + (1 - b1) * gi
             v2 = b2 * v[i] + (1 - b2) * gi * gi
@@ -125,7 +119,7 @@ def adafactor_update(grads, state, params, oc: OptConfig):
         # A stacked leaf is cut into layers only where every reduction is
         # within a layer; the RMS clip needs the whole leaf, so its sum of
         # squares is taken in a first pass and the update made in a second.
-        idx = _layers(p) if fac else (Ellipsis,)
+        idx = layer_slices(p) if fac else (Ellipsis,)
         sq = torch.zeros((), dtype=torch.float32, device=p.device)
         for i in idx:
             gi = g[i].float()

@@ -18,7 +18,7 @@ from ..device import require_on, resolve_device
 from ..kernels import ops
 from ..kernels.quantize import BLOCK_GROUPS, GROUP
 from ..models import forward_train
-from ..tree import tree_leaves, tree_map
+from ..tree import layer_slices, tree_leaves, tree_map
 from .loss import lm_loss
 from .optimizer import OptConfig, opt_update
 
@@ -49,7 +49,7 @@ def global_norm(tree) -> torch.Tensor:
     stacked leaf at a time)."""
     total = None
     for x in tree_leaves(tree):
-        for i in (range(x.shape[0]) if x.dim() >= 3 else (Ellipsis,)):
+        for i in layer_slices(x):
             s = x[i].float().square().sum()
             total = s if total is None else total + s
     return torch.sqrt(total)

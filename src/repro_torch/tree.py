@@ -11,10 +11,22 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
+def tree_items(tree, prefix: str = ""):
+    """(path, leaf) pairs, depth first; a path joins the keys with '/'."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_items(v, f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
 def tree_leaves(tree):
     """The leaves, depth first."""
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from tree_leaves(v)
-    else:
-        yield tree
+    for _, leaf in tree_items(tree):
+        yield leaf
+
+
+def layer_slices(x):
+    """Index expressions that cut a leaf into its layers: one per layer of
+    a stacked leaf (>= 3 dims, layers first), else the whole leaf."""
+    return range(x.shape[0]) if x.dim() >= 3 else (Ellipsis,)
