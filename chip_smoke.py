@@ -14,6 +14,9 @@ Phases, each fatal on failure:
    cases, a ragged S, D=256 and the slices' shapes, the backward fed the
    forward kernel's own ``out`` and ``lse``; quantize / dequantize
    bit for bit on a layer-sized gradient, an all-zero group and .5 ties;
+   checksum and stripe pack / unpack bit for bit, the checksum also
+   against ``core.integrity.checksum`` of the host bytes, up to a
+   2.7 GB (> 2^31 bytes) leaf;
 3. drive the serving slice through the port's entry points at full width:
    deepseek-7b (30 layers, d 4096, bf16, random weights from a seeded
    generator on the card), ``attn_impl="flash_pallas"``, B=4 prompts of
@@ -29,7 +32,19 @@ Phases, each fatal on failure:
    params and batch, then run ``make_train_step`` once to warm up and 3
    timed steps with every launch counter set to 0 just before and read
    just after (exact counts per step), and check the loss falls;
-5. time the slices and each kernel against its bound, its plain version and
+5. drive the checkpointed-training slice through the port's driver
+   (``launch.train.run``): deepseek-7b at full width cut to 2 layers,
+   the training slice's settings, async checkpoints every 3 steps into the
+   simulated store (RP_2GX, sharded) with leaf checksums from the checksum
+   kernel, an injected engine + worker failure at step 7, the restore of
+   step 6 onto the card and the resume to step 10; check restarts, steps,
+   the falling loss, the first save's manifest checksums against
+   ``integrity.checksum`` of the host bytes, the restored tree bit for bit
+   against a copy taken at the step-6 save, and exact launch counts of
+   every kernel over the run; then pack and unpack every leaf of that
+   checkpoint through ``ops.shard_pack`` / ``ops.shard_unpack``
+   (16 targets, 64 KiB cells), with exact launch counts;
+6. time the slices and each kernel against its bound, its plain version and
    the nearest PyTorch call.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -118,6 +133,28 @@ HIDDEN_REL_TOL = 2e-2
 # prefill of S+1 tokens (kernel): different summation orders and roundings
 # in bf16 over 30 layers.
 DECODE_REL_TOL = 5e-2
+# The storage kernels are integer functions and are held bit for bit.
+# Checksum cases (bytes): empty, 1-7, each residue mod 4, a 1 MiB + 7
+# buffer; then a 4-byte but not 16-byte aligned view, deepseek-7b's
+# token embedding (102400 x 4096 bf16) and its stacked w_gate at full
+# depth (30 x 4096 x 11008 bf16, 2,705,326,080 bytes > 2^31).
+CHECKSUM_SIZES = [0, 1, 2, 3, 4, 5, 6, 7, 1001, 1002, 1003, 1004,
+                  (1 << 20) + 7]
+EMBED_LEAF = (102400, 4096)
+BIG_LEAF = (30, 4096, 11008)
+# Stripe layouts: benchmarks/run.py's 16 targets of 64 KiB cells, and 3
+# targets, which leaves the embedding's 12,800 cells ragged (padded).
+STRIPES = [(16, 1 << 16), (3, 1 << 16)]
+# The checkpointed-training slice through the port's driver: deepseek-7b at
+# full width cut to 2 layers (the simulated store keeps every replica's
+# bytes in host RAM: 4.98 GB a checkpoint, 2 replicas, up to 3 steps
+# alive), the training slice's settings, saves every 3 steps and an
+# injected engine + worker failure at step 7: saves at 0/3/6, a restore of
+# step 6, a resume to step 10 with a save at 9.
+CKPT_LAYERS = 2
+CKPT_STEPS = 10
+CKPT_EVERY = 3
+CKPT_KILL_AT = 7
 
 
 def fail(msg: str) -> None:
@@ -335,6 +372,77 @@ def phase_quant_kernels() -> dict:
     return errs
 
 
+def phase_storage_kernels(device="cuda") -> dict:
+    """Checksum and stripe pack / unpack vs their plain twins, bit for bit,
+    and the checksum also vs ``core.integrity.checksum`` of the host bytes.
+    Returns the largest |difference| of each kernel's output."""
+    import torch
+    from repro_torch.core import integrity
+    from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import shard_pack as sp
+    gen = torch.Generator(device=device).manual_seed(16)
+
+    def rand_bytes(n):
+        return torch.randint(0, 256, (n,), generator=gen, device=device,
+                             dtype=torch.uint8)
+
+    embed = (torch.randn(EMBED_LEAF, generator=gen, device=device) * 0.02) \
+        .to(torch.bfloat16)
+    buf = rand_bytes(4096 + 4)
+    cases = [(f"{n} bytes", rand_bytes(n)) for n in CHECKSUM_SIZES]
+    cases += [("4-byte aligned view", buf[4:]),
+              ("embed/tok bf16", embed)]
+    errs = {"checksum": 0, "shard_pack": 0, "shard_unpack": 0}
+    for name, x in cases + [("w_gate stacked bf16", None)]:
+        if x is None:       # made last and alone: 2.7 GB on the card
+            del cases
+            x = (torch.randn(BIG_LEAF, generator=gen, device=device)
+                 .to(torch.bfloat16))
+        got = ck.checksum(x)
+        want = ck.checksum_reference(x)
+        full = ops.checksum_array(x)
+        host = ck.byte_view(x).cpu().numpy()
+        want_host = integrity.checksum(host)
+        err = abs((int(got) & ck.MASK32) - (int(want) & ck.MASK32))
+        rec = {"kernel": "checksum", "case": name,
+               "nbytes": x.numel() * x.element_size(),
+               "data_ptr_mod_16": x.data_ptr() % 16,
+               "kernel_vs_twin_equal": torch.equal(got, want),
+               "with_length_mix": full, "integrity_checksum": want_host}
+        print(json.dumps(rec))
+        if not rec["kernel_vs_twin_equal"] or full != want_host:
+            fail(f"checksum disagrees: {rec}")
+        errs["checksum"] = max(errs["checksum"], err)
+        del x, host
+
+    u8 = ck.byte_view(embed)
+    for width, cell_bytes in STRIPES:
+        packed, meta = ops.shard_pack(embed, width, cell_bytes)
+        cells = torch.cat(
+            [u8, u8.new_zeros((-u8.numel()) % (cell_bytes * width))]) \
+            .view(torch.int32).view(-1, cell_bytes // 512, sp.CELL_COLS)
+        want = sp.shard_pack_reference(cells, width)
+        back_cells = sp.shard_unpack(packed)
+        back = ops.shard_unpack(packed, meta)
+        rec = {"kernel": "shard_pack/shard_unpack", "width": width,
+               "cell_bytes": cell_bytes, "n_cells": cells.shape[0],
+               "padded_bytes": cells.numel() * 4 - u8.numel(),
+               "pack_equal": torch.equal(packed, want),
+               "unpack_equal": torch.equal(back_cells, cells),
+               "round_trip_equal": torch.equal(back, u8)}
+        print(json.dumps(rec))
+        if not (rec["pack_equal"] and rec["unpack_equal"]
+                and rec["round_trip_equal"]):
+            fail(f"shard_pack / shard_unpack disagree: {rec}")
+        errs["shard_pack"] = max(errs["shard_pack"], int(
+            (packed.long() - want.long()).abs().max()))
+        errs["shard_unpack"] = max(errs["shard_unpack"], int(
+            (back_cells.long() - cells.long()).abs().max()))
+        del packed, cells, want, back_cells, back
+    return errs
+
+
 def phase_slice() -> dict:
     """The serving slice at full width through the port's entry points."""
     import torch
@@ -442,18 +550,225 @@ def phase_slice() -> dict:
 
 
 def _counters():
+    from repro_torch.kernels import checksum as ck
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import shard_pack as sp
     return {"flash_fwd": fa.LAUNCHES, "flash_bwd_dq": fa.BWD_DQ_LAUNCHES,
             "flash_bwd_dkv": fa.BWD_DKV_LAUNCHES,
-            "quantize": qz.QUANT_LAUNCHES, "dequantize": qz.DEQUANT_LAUNCHES}
+            "quantize": qz.QUANT_LAUNCHES, "dequantize": qz.DEQUANT_LAUNCHES,
+            "checksum": ck.CHECKSUM_LAUNCHES, "shard_pack": sp.PACK_LAUNCHES,
+            "shard_unpack": sp.UNPACK_LAUNCHES}
 
 
 def _zero_counters() -> None:
+    from repro_torch.kernels import checksum as ck
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import shard_pack as sp
     fa.LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
     qz.QUANT_LAUNCHES = qz.DEQUANT_LAUNCHES = 0
+    ck.CHECKSUM_LAUNCHES = sp.PACK_LAUNCHES = sp.UNPACK_LAUNCHES = 0
+
+
+def _host_gb() -> dict:
+    import resource
+    out = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                         timeout=60).stdout
+    return {"free_g": out.strip().splitlines(),
+            "peak_rss_gb": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss / 1e6}
+
+
+def phase_ckpt_train(device="cuda") -> dict:
+    """The checkpointed-training slice through ``launch.train.run``: train
+    steps, rolling async checkpoints with on-card checksums, an injected
+    engine + worker failure, ``restore_latest`` back onto the card and the
+    resume.  The driver builds its own world; this phase only watches it:
+    it keeps the driver's manager, a copy on the card of the tree the last
+    save before the failure was given, the first save's manifest check
+    against ``integrity.checksum`` of the host bytes, and the restored
+    tree's comparison with that copy."""
+    import argparse
+    import torch
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.ckpt import serializer as S
+    from repro_torch.configs import get_arch
+    from repro_torch.core import integrity
+    from repro_torch.kernels.checksum import byte_view
+    from repro_torch.launch import train as driver
+
+    cfg = dataclasses.replace(get_arch(SLICE_ARCH), n_layers=CKPT_LAYERS,
+                              attn_impl="flash_pallas", optimizer="adafactor",
+                              remat=True)
+    args = argparse.Namespace(
+        arch=SLICE_ARCH, smoke=False, steps=CKPT_STEPS, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, vocab=cfg.vocab_size, interface="dfs", oclass="S2",
+        ckpt_oclass="RP_2GX", ckpt_layout="sharded", ckpt_every=CKPT_EVERY,
+        kill_at_step=CKPT_KILL_AT, grad_compression=True, servers=4,
+        workers=4, corpus_tokens=(CKPT_STEPS + 2) * TRAIN_BATCH * TRAIN_SEQ,
+        shard_tokens=32768, seed=0)
+    last_save = (CKPT_KILL_AT - 1) // CKPT_EVERY * CKPT_EVERY
+    seen = {"saves": [], "restores": [], "check_s": 0.0}
+
+    build_world, async_save, restore = (driver.build_world,
+                                        Checkpointer.async_save,
+                                        Checkpointer.restore)
+
+    def watch_world(a):
+        seen["world"] = build_world(a)
+        return seen["world"]
+
+    def watch_async_save(self, step, tree, extra_meta=None):
+        seen["saves"].append(step)
+        if step == last_save and not seen["restores"]:
+            seen["copy"] = {p: v.clone() for p, v in S.flatten_tree(tree)}
+        ev = async_save(self, step, tree, extra_meta)
+        if len(seen["saves"]) == 1:
+            # the first save: every manifest checksum (the kernel's, on
+            # the card) against integrity.checksum of the host bytes
+            t0 = time.perf_counter()
+            ev.wait()
+            man = self.load_manifest(step)["leaves"]
+            flat = S.flatten_tree(tree)
+            seen["first_save"] = {
+                "leaves": len(man), "paths_equal": sorted(man) == sorted(
+                    p for p, _ in flat),
+                "csum_equal": all(
+                    man[p]["csum"] == integrity.checksum(
+                        S.leaf_to_bytes(v)[0]) for p, v in flat)}
+            seen["check_s"] += time.perf_counter() - t0
+        return ev
+
+    def watch_restore(self, step, template):
+        tree = restore(self, step, template)
+        t0 = time.perf_counter()
+        flat = S.flatten_tree(tree)
+        copy = seen.get("copy", {})
+        seen["restores"].append({
+            "step": step, "leaves": len(flat),
+            "on_card": all(v.device.type == device for _, v in flat),
+            "bit_equal_to_saved": step == last_save
+            and sorted(copy) == sorted(p for p, _ in flat)
+            and all(torch.equal(byte_view(v), byte_view(copy[p]))
+                    for p, v in flat),
+            "aliases_template": bool(
+                {v.data_ptr() for _, v in flat}
+                & {v.data_ptr() for _, v in S.flatten_tree(template)})})
+        seen["check_s"] += time.perf_counter() - t0
+        return tree
+
+    driver.build_world = watch_world
+    Checkpointer.async_save = watch_async_save
+    Checkpointer.restore = watch_restore
+    try:
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        host_before = _host_gb()
+        _zero_counters()
+        t0 = time.perf_counter()
+        out = driver.run(args, cfg=cfg, device=device)
+        run_s = time.perf_counter() - t0
+        launches = _counters()
+    finally:
+        driver.build_world = build_world
+        Checkpointer.async_save = async_save
+        Checkpointer.restore = restore
+    host_after = _host_gb()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 \
+        if device == "cuda" else None
+
+    mgr = seen["world"][3]
+    copy = seen.pop("copy")
+    n_leaves = len(copy)
+    L = cfg.n_layers
+    n_big = sum(1 for p, v in copy.items()
+                if p.startswith("/params/") and v.numel() >= 8192)
+    restored = seen["restores"][0]["step"] if seen["restores"] else None
+    steps_run = CKPT_KILL_AT + CKPT_STEPS - (last_save + 1)
+    saves = [s for s in range(CKPT_KILL_AT) if s % CKPT_EVERY == 0] + \
+        [s for s in range(last_save + 1, CKPT_STEPS) if s % CKPT_EVERY == 0]
+    want = {"flash_fwd": 2 * L * steps_run, "flash_bwd_dq": L * steps_run,
+            "flash_bwd_dkv": L * steps_run, "quantize": n_big * steps_run,
+            "dequantize": n_big * steps_run,
+            "checksum": n_leaves * (len(saves) + 1),
+            "shard_pack": 0, "shard_unpack": 0}
+    timings = {}
+    for t in mgr.ckpt.timings:
+        rec = timings.setdefault(f"{t['op']}_{t['step']}", {})
+        rec.update({k: v for k, v in t.items() if k not in ("op", "step")})
+    result = {
+        "arch": cfg.name, "layers": L, "d_model": cfg.d_model,
+        "vocab": cfg.vocab_size, "dtype": cfg.param_dtype,
+        "optimizer": cfg.optimizer, "grad_compression": True,
+        "remat": cfg.remat, "attn_impl": cfg.attn_impl,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": CKPT_STEPS,
+        "ckpt_every": CKPT_EVERY, "kill_at_step": CKPT_KILL_AT,
+        "result": out, "run_s": run_s, "check_s": seen["check_s"],
+        "saves": seen["saves"], "restores": seen["restores"],
+        "first_save": seen["first_save"], "leaves": n_leaves,
+        "params": sum(v.numel() for p, v in copy.items()
+                      if p.startswith("/params/")),
+        "checkpoint_bytes": sum(v.numel() * v.element_size()
+                                for v in copy.values()),
+        "launches": launches, "want_launches": want, "timings": timings,
+        "peak_mem_gb": peak_gb, "host_before": host_before,
+        "host_after": host_after}
+    print(json.dumps({"ckpt_train": result}))
+    if out["restarts"] != 1 or out["steps"] != CKPT_STEPS:
+        fail(f"driver: restarts {out['restarts']}, steps {out['steps']}; "
+             f"want 1 and {CKPT_STEPS}")
+    if not (math.isfinite(out["first_loss"]) and
+            math.isfinite(out["final_loss"]) and
+            out["final_loss"] < out["first_loss"]):
+        fail(f"loss did not fall: {out['first_loss']} -> "
+             f"{out['final_loss']}")
+    if restored != last_save or len(seen["restores"]) != 1 or not all(
+            (r["on_card"], r["bit_equal_to_saved"],
+             not r["aliases_template"]) for r in seen["restores"]):
+        fail(f"restore: {seen['restores']}")
+    if seen["saves"] != saves:
+        fail(f"saves at {seen['saves']}, want {saves}")
+    fs = seen["first_save"]
+    if not (fs["paths_equal"] and fs["csum_equal"]):
+        fail(f"first save's manifest checksums: {fs}")
+    if device == "cuda" and launches != want:
+        fail(f"checkpointed training launches {launches}, want {want}")
+    result["copy"] = copy       # the step-6 tree, for the stripe path
+    return result
+
+
+def phase_stripe(tree: dict) -> dict:
+    """The stripe entry points over a checkpoint on the card: every leaf of
+    the tree packed into benchmarks/run.py's layout (16 targets, 64 KiB
+    cells) with ``ops.shard_pack``, unpacked with ``ops.shard_unpack`` and
+    held against its own bytes, with every launch counter set to 0 just
+    before and read just after."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.checksum import byte_view
+    width, cell_bytes = STRIPES[0]
+    _zero_counters()
+    equal = True
+    t0 = time.perf_counter()
+    for _, leaf in sorted(tree.items()):
+        packed, meta = ops.shard_pack(leaf, width, cell_bytes)
+        equal = equal and torch.equal(ops.shard_unpack(packed, meta),
+                                      byte_view(leaf))
+        del packed
+    torch.cuda.synchronize()
+    launches = _counters()
+    want = {k: 0 for k in launches}
+    want["shard_pack"] = want["shard_unpack"] = len(tree)
+    r = {"leaves": len(tree), "width": width, "cell_bytes": cell_bytes,
+         "round_trip_equal": equal, "s": time.perf_counter() - t0,
+         "launches": launches}
+    print(json.dumps({"stripe_path": r}))
+    if not equal:
+        fail("stripe pack / unpack of the checkpoint did not round-trip")
+    if launches != want:
+        fail(f"stripe path launches {launches}, want {want}")
+    return r
 
 
 def train_model_flops(cfg, n_params: int) -> float:
@@ -544,7 +859,8 @@ def phase_train() -> dict:
     L = cfg.n_layers
     n = TRAIN_TIMED_STEPS
     want = {"flash_fwd": 2 * L * n, "flash_bwd_dq": L * n,
-            "flash_bwd_dkv": L * n, "quantize": 11 * n, "dequantize": 11 * n}
+            "flash_bwd_dkv": L * n, "quantize": 11 * n, "dequantize": 11 * n,
+            "checksum": 0, "shard_pack": 0, "shard_unpack": 0}
     if launches != want:
         fail(f"training launches {launches}, want {want}")
     if not all(math.isfinite(x) for x in [first_loss, after, *losses,
@@ -602,6 +918,53 @@ def phase_kernel_times() -> dict:
             "tflops_per_s": flops / (ms / 1e3) / 1e12}
 
 
+def phase_storage_kernel_times(tree: dict) -> dict:
+    """The storage kernels at the checkpoint's shapes, each beside its
+    bound, its plain twin and the nearest PyTorch call: the checksum of
+    the token embedding (102400 x 4096 bf16) and of every leaf of one
+    save, and pack / unpack of the embedding into 16 targets of 64 KiB
+    cells.  ``tree`` is a checkpoint on the card (path -> tensor)."""
+    import torch
+    from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import shard_pack as sp
+    embed = tree["/params/embed/tok"]
+    nbytes = embed.numel() * embed.element_size()
+    leaves = list(tree.values())
+    save_bytes = sum(v.numel() * v.element_size() for v in leaves)
+    csum = {"ms": cuda_ms(lambda: ck.checksum(embed), iters=20),
+            "plain_ms": cuda_ms(lambda: ck.checksum_reference(embed),
+                                iters=3, warmup=1),
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None,
+            "per_save_ms": cuda_ms(lambda: [ck.checksum(v) for v in leaves],
+                                   iters=5),
+            "per_save_bytes": save_bytes, "per_save_leaves": len(leaves),
+            "per_save_bound_ms": save_bytes / HBM_BYTES_PER_S * 1e3}
+    width, cell_bytes = STRIPES[0]
+    cells = ck.byte_view(embed).view(torch.int32).view(
+        -1, cell_bytes // (sp.CELL_COLS * 4), sp.CELL_COLS)
+    packed = sp.shard_pack(cells, width)
+    cpt = cells.shape[0] // width
+    bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    pack = {"ms": cuda_ms(lambda: sp.shard_pack(cells, width), iters=20),
+            "plain_ms": cuda_ms(lambda: sp.shard_pack_reference(cells, width),
+                                iters=20),
+            "library_ms": cuda_ms(lambda: cells.view(
+                cpt, width, *cells.shape[1:]).transpose(0, 1).contiguous(),
+                iters=20),
+            "bytes": 2 * nbytes, "bound_ms": bound, "bound_by": "bytes",
+            "width": width, "cell_bytes": cell_bytes}
+    unpack = {"ms": cuda_ms(lambda: sp.shard_unpack(packed), iters=20),
+              "plain_ms": cuda_ms(lambda: sp.shard_unpack_reference(packed),
+                                  iters=20),
+              "library_ms": cuda_ms(lambda: packed.transpose(0, 1)
+                                    .contiguous(), iters=20),
+              "bytes": 2 * nbytes, "bound_ms": bound, "bound_by": "bytes",
+              "width": width, "cell_bytes": cell_bytes}
+    del packed, cells
+    return {"checksum": csum, "shard_pack": pack, "shard_unpack": unpack}
+
+
 def _profiled_ms(fn, names, iters: int = 5) -> dict:
     """Device ms per call of each named kernel inside ``fn`` (CUPTI, through
     torch.profiler), for kernels that one wrapper launches together."""
@@ -643,6 +1006,10 @@ def phase_train_kernel_times() -> dict:
     out5, lse = fa.flash_fwd(q5, k4, v4, causal=True)
     delta = (do5.float() * out5.float()).sum(-1)
     fwd_ms = cuda_ms(lambda: fa.flash_fwd(q5, k4, v4, causal=True), iters=5)
+    with torch.no_grad():
+        sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True), iters=5)
     bwd = lambda: fa.flash_bwd(q5, k4, v4, do5, lse, delta, causal=True)
     pair_ms = cuda_ms(bwd, iters=5)
     per = _profiled_ms(bwd, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
@@ -669,6 +1036,8 @@ def phase_train_kernel_times() -> dict:
     dq_bound = bound(3 * prod, io(4, 1))
     dkv_bound = bound(4 * prod, io(4, 2))
     pair_bound = bound(5 * prod, io(4, 3))
+    # the forward: 2 products; q, k, v, out and the fp32 lse
+    fwd_bound = bound(2 * prod, io(3, 1) - 4 * B * Hq * S)
     del q, k, v, do, q5, k4, v4, do5, out5, lse, delta, qh, kh, vh
     del sdpa_out, doh
     torch.cuda.empty_cache()
@@ -701,6 +1070,9 @@ def phase_train_kernel_times() -> dict:
         t["bound_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
         t["bound_by"] = "bytes"
     return {"flash_fwd_train_shape_ms": fwd_ms,
+            "flash_fwd_train_shape_bound_ms": fwd_bound[0],
+            "flash_fwd_train_shape_bound_by": fwd_bound[1],
+            "sdpa_fwd_train_shape_ms": sdpa_fwd_ms,
             "flash_bwd_pair_ms": pair_ms,
             "flash_bwd_pair_bound_ms": pair_bound[0],
             "flash_bwd_dq": {"ms": per["flash_bwd_dq_kernel"],
@@ -732,14 +1104,27 @@ def main() -> int:
     slice_err = phase_kernels()
     fwd_train_err, bwd_err = phase_bwd_kernels()
     quant_err = phase_quant_kernels()
+    storage_err = phase_storage_kernels()
+    torch.cuda.empty_cache()
     slice_run = phase_slice()
     print(json.dumps({"slice": slice_run, "card": card}))
     train_run = phase_train()
     print(json.dumps({"train": train_run, "card": card}))
+    ckpt_run = phase_ckpt_train()
+    saved = ckpt_run.pop("copy")
+    stripe_run = phase_stripe(saved)
+    st = phase_storage_kernel_times(saved)
+    print(json.dumps({"storage_kernel_times": st, "card": card}))
+    del saved
+    torch.cuda.empty_cache()
     times = phase_kernel_times()
     print(json.dumps({"kernel_times": times, "card": card}))
     tt = phase_train_kernel_times()
     print(json.dumps({"train_kernel_times": tt, "card": card}))
+    print(json.dumps({"ckpt_train": {
+        k: v for k, v in ckpt_run.items()
+        if k in ("result", "run_s", "check_s", "launches", "timings",
+                 "peak_mem_gb", "host_after")}, "card": card}))
     tl = train_run["launches"]
     bwd_plain = tt["flash_bwd_plain_pair_ms"]  # the twin computes the pair
     sdpa_bwd = tt["sdpa_backward_ms"]          # likewise
@@ -778,7 +1163,23 @@ def main() -> int:
         "max_abs_err": quant_err["dequantized"],
         "ms": dt["ms"], "plain_ms": dt["plain_ms"],
         "bound_ms": dt["bound_ms"], "bound_by": dt["bound_by"],
-        "library_ms": dt["library_ms"]}]}
+        "library_ms": dt["library_ms"]}, {
+        "name": "checksum", "route": "cuda", "source": csrc + "checksum.cu",
+        "replaces": "src/repro/kernels/checksum.py:44",
+        "launches": ckpt_run["launches"]["checksum"],
+        "max_abs_err": storage_err["checksum"],
+        "ms": st["checksum"]["ms"], "plain_ms": st["checksum"]["plain_ms"],
+        "bound_ms": st["checksum"]["bound_ms"],
+        "bound_by": st["checksum"]["bound_by"], "library_ms": None}] + [{
+        "name": name, "route": "cuda", "source": csrc + "shard_pack.cu",
+        "replaces": replaces, "launches": stripe_run["launches"][name],
+        "max_abs_err": storage_err[name], "ms": st[name]["ms"],
+        "plain_ms": st[name]["plain_ms"], "bound_ms": st[name]["bound_ms"],
+        "bound_by": st[name]["bound_by"],
+        "library_ms": st[name]["library_ms"]}
+        for name, replaces in (
+            ("shard_pack", "src/repro/kernels/shard_pack.py:27"),
+            ("shard_unpack", "src/repro/kernels/shard_pack.py:47"))]}
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

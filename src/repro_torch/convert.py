@@ -1,11 +1,11 @@
-"""numpy trees -> the port's tensor dicts, bit for bit.
+"""numpy trees <-> the port's tensor dicts, bit for bit.
 
 The JAX package's params, caches and optimizer states, turned into numpy
 arrays (``jax.tree.map(np.asarray, tree)``), become the port's nested dicts
 of tensors with the same keys, shapes and dtypes, so both packages compute on
 the same numbers.  ``torch.from_numpy`` rejects ``ml_dtypes.bfloat16``, so a
 bf16 array crosses as its 16-bit pattern: viewed as int16 in numpy, then
-viewed as ``torch.bfloat16`` in torch.
+viewed as ``torch.bfloat16`` in torch.  ``tree_to_numpy`` is the inverse.
 """
 from __future__ import annotations
 
@@ -41,3 +41,17 @@ def opt_state_from_numpy(tree, device):
         raise ValueError("an optimizer state's count is a 0-d int32")
     return state
 
+
+
+def tree_to_numpy(tree, bfloat16=None):
+    """Nested dicts of tensors -> the same of numpy arrays, host copies in
+    the JAX package's dtypes.  numpy has no bf16 of its own: pass
+    ``ml_dtypes.bfloat16`` to get one; without it a bf16 tensor comes back
+    as its int16 bit pattern."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v, bfloat16) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        a = t.view(torch.int16).numpy().copy()
+        return a.view(bfloat16) if bfloat16 is not None else a
+    return t.numpy().copy()

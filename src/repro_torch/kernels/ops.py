@@ -12,6 +12,13 @@ layout change is a free view.
 ``quantize`` / ``dequantize`` mirror the JAX wrappers of the same names:
 flatten, pad to whole blocks of 8 x 1024 values, and carry the original
 shape, dtype and length in ``meta``.
+
+``checksum_array`` is bit-identical to ``core.integrity.checksum`` of a
+tensor's bytes, length mix included; unlike the JAX wrapper, which goes
+through ``np.asarray`` first, it reads a CUDA tensor's bytes where they lie.
+``shard_pack`` / ``shard_unpack`` mirror the JAX wrappers: the byte view,
+zero padding to whole stripes of ``width`` cells, and ``meta =
+(orig_nbytes, cell_bytes, width)``.
 """
 from __future__ import annotations
 
@@ -19,6 +26,8 @@ import math
 
 import torch
 
+from . import shard_pack as _sp
+from .checksum import byte_view, checksum
 from .flash_attention import flash_bwd, flash_fwd
 from .quantize import BLOCK_GROUPS, GROUP
 from .quantize import dequantize as _dequantize_groups
@@ -98,3 +107,52 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor, meta) -> torch.Tensor:
         else torch.float32
     flat = _dequantize_groups(q, scales, out_dtype).reshape(-1)
     return flat[:n].reshape(shape).to(dtype)
+
+
+# ----------------------------- checksum -----------------------------
+
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4B5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def checksum_array(x: torch.Tensor) -> int:
+    """The checksum of a contiguous tensor's bytes, bit-identical to
+    ``core.integrity.checksum``: the kernel's weighted sum (the twin's on
+    the CPU) XOR the low 32 bits of ``splitmix64(nbytes)``."""
+    nbytes = x.numel() * x.element_size()
+    return (int(checksum(x)) & 0xFFFFFFFF) ^ (_splitmix64(nbytes)
+                                              & 0xFFFFFFFF)
+
+
+# ----------------------------- stripe packing -----------------------------
+
+def shard_pack(x: torch.Tensor, width: int, cell_bytes: int = 1 << 16):
+    """Reorder a tensor's bytes into per-target stripe buffers.
+
+    -> (packed (width, cells_per_target, cell_rows, 128) int32, meta) on
+    ``x``'s device.  cell_bytes must be a multiple of 512 (128 words)."""
+    if cell_bytes % (_sp.CELL_COLS * 4):
+        raise ValueError(f"cell_bytes {cell_bytes} is not a multiple of "
+                         f"{_sp.CELL_COLS * 4}")
+    u8 = byte_view(x.contiguous())
+    nbytes = u8.numel()
+    pad = (-nbytes) % (cell_bytes * width)
+    if pad or u8.storage_offset() % 4:
+        u8 = torch.cat([u8, u8.new_zeros(pad)])
+    cells = u8.view(torch.int32).view(-1, cell_bytes // (_sp.CELL_COLS * 4),
+                                      _sp.CELL_COLS)
+    return _sp.shard_pack(cells, width), (nbytes, cell_bytes, width)
+
+
+def shard_unpack(packed: torch.Tensor, meta) -> torch.Tensor:
+    """Inverse: -> the original bytes as uint8[orig_nbytes], on the packed
+    buffer's device."""
+    orig_nbytes, _cell_bytes, _width = meta
+    cells = _sp.shard_unpack(packed)
+    return cells.reshape(-1).view(torch.uint8)[:orig_nbytes]

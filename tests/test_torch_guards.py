@@ -31,7 +31,12 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     mods = list(_modules())
     for m in ("repro_torch.kernels.flash_attention",
               "repro_torch.kernels.quantize", "repro_torch.train.train_step",
-              "repro_torch.models.attention_flash_vjp"):
+              "repro_torch.models.attention_flash_vjp",
+              "repro_torch.kernels.checksum", "repro_torch.kernels.shard_pack",
+              "repro_torch.ckpt.serializer", "repro_torch.ckpt.checkpointer",
+              "repro_torch.ckpt.manager", "repro_torch.core.engine",
+              "repro_torch.data.pipeline", "repro_torch.ft.failures",
+              "repro_torch.launch.train"):
         assert m in mods
     code = "\n".join([
         "import importlib, importlib.util, sys",
@@ -52,7 +57,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
 @pytest.mark.parametrize("call", ["init_model", "make_inputs", "init_cache",
                                   "make_prefill_step", "make_decode_step",
                                   "measure_decode_s", "make_train_step",
-                                  "make_eval_step"])
+                                  "make_eval_step", "launch.train.run"])
 def test_entry_points_refuse_cpu_without_being_asked(call):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -70,9 +75,42 @@ def test_entry_points_refuse_cpu_without_being_asked(call):
         "measure_decode_s": lambda: serve.measure_decode_s(),
         "make_train_step": lambda: train.make_train_step(cfg),
         "make_eval_step": lambda: train.make_eval_step(cfg),
+        "launch.train.run": lambda: _run_driver_on_the_default_device(),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[call]()
+
+
+def _run_driver_on_the_default_device():
+    import argparse
+    from repro_torch.launch.train import run
+    run(argparse.Namespace(
+        arch="deepseek-7b", smoke=True, steps=1, batch=1, seq=8, vocab=64,
+        interface="dfs", oclass="S2", ckpt_oclass="RP_2GX",
+        ckpt_layout="sharded", ckpt_every=1, kill_at_step=0,
+        grad_compression=False, servers=2, workers=2, corpus_tokens=1000,
+        shard_tokens=512, seed=0))
+
+
+def test_storage_seam_never_falls_back_to_the_host(monkeypatch):
+    """A CUDA leaf's checksum goes to the kernel; if the kernel cannot run
+    the call raises instead of computing ``integrity.checksum``."""
+    from repro_torch.ckpt import serializer as S
+    from repro_torch.kernels import checksum as ck
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    class LooksLikeCuda(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda")
+
+    calls = []
+    monkeypatch.setattr(S.integrity, "checksum",
+                        lambda *a: calls.append(a) or 0)
+    before = ck.CHECKSUM_LAUNCHES
+    with pytest.raises((RuntimeError, AssertionError), match="nvcc|CUDA"):
+        S.checksum_leaf(torch.zeros(4).as_subclass(LooksLikeCuda))
+    assert calls == [] and ck.CHECKSUM_LAUNCHES == before
 
 
 @pytest.mark.parametrize("factory", ["make_prefill_step", "make_train_step",

@@ -232,3 +232,105 @@ def test_train_step_launches_every_kernel(cuda):
     assert abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) < 1e-4
     assert abs(float(m_gpu["grad_norm"]) / float(m_cpu["grad_norm"])
                - 1) < 1e-3
+
+
+# ------------------------- checksum, stripe pack -------------------------
+
+@pytest.mark.parametrize("nbytes", [1, 2, 3, 4, 5, 7, 15, 16, 17, 1001, 4096,
+                                    (1 << 20) + 7, 3 * (1 << 22) + 5])
+@pytest.mark.parametrize("offset", [0, 4, 8, 12])
+def test_checksum_kernel_bit_exact(cuda, nbytes, offset):
+    from repro_torch.core import integrity
+    from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=cuda).manual_seed(nbytes + offset)
+    buf = torch.randint(0, 256, (nbytes + offset,), generator=gen,
+                        device=cuda, dtype=torch.uint8)
+    x = buf[offset:]
+    before = ck.CHECKSUM_LAUNCHES
+    got = ck.checksum(x)
+    torch.cuda.synchronize()
+    assert ck.CHECKSUM_LAUNCHES == before + 1
+    assert torch.equal(got, ck.checksum_reference(x))
+    assert ops.checksum_array(x) == integrity.checksum(x.cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8,
+                                   torch.int32])
+def test_checksum_kernel_leaf_dtypes(cuda, dtype):
+    from repro_torch.core import integrity
+    from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = (torch.randn((333, 77), generator=gen, device=cuda) * 50).to(dtype)
+    assert torch.equal(ck.checksum(x), ck.checksum_reference(x))
+    assert ops.checksum_array(x) == \
+        integrity.checksum(ck.byte_view(x).cpu().numpy())
+    count = torch.tensor(7, dtype=torch.int32, device=cuda)
+    assert ops.checksum_array(count) == \
+        integrity.checksum(count.cpu().numpy())
+
+
+def test_checksum_kernel_refuses_unaligned_and_strided(cuda):
+    from repro_torch.kernels import checksum as ck
+    buf = torch.zeros(64, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        ck.checksum(buf[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.checksum(torch.zeros((8, 8), device=cuda).t())
+
+
+@pytest.mark.parametrize("width,cell_rows,n_mult", [(1, 1, 3), (2, 2, 1),
+                                                     (4, 1, 3), (16, 128, 2),
+                                                     (3, 128, 5)])
+def test_shard_pack_kernels_bit_exact(cuda, width, cell_rows, n_mult):
+    from repro_torch.kernels import shard_pack as sp
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    cells = torch.randint(-2**31, 2**31 - 1, (width * n_mult, cell_rows, 128),
+                          generator=gen, device=cuda, dtype=torch.int32)
+    before = (sp.PACK_LAUNCHES, sp.UNPACK_LAUNCHES)
+    packed = sp.shard_pack(cells, width)
+    back = sp.shard_unpack(packed)
+    torch.cuda.synchronize()
+    assert (sp.PACK_LAUNCHES, sp.UNPACK_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(packed, sp.shard_pack_reference(cells, width))
+    assert torch.equal(back, cells)
+
+
+def test_ops_shard_pack_round_trip_ragged(cuda):
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((1000, 333), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    packed, meta = ops.shard_pack(x, 3, cell_bytes=4096)
+    back = ops.shard_unpack(packed, meta)
+    assert meta == (x.numel() * 2, 4096, 3)
+    assert torch.equal(back, x.reshape(-1).view(torch.uint8))
+
+
+def test_checkpoint_round_trip_on_the_card(cuda):
+    """A tree on the card: checksums by the kernel on save, leaves back on
+    the card and verified there on restore, bit for bit."""
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.core import Pool, Topology
+    from repro_torch.core.interfaces import DFS
+    from repro_torch.kernels import checksum as ck
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    tree = {"w": torch.randn((64, 130), generator=gen, device=cuda)
+            .to(torch.bfloat16),
+            "m": torch.randn((7,), generator=gen, device=cuda),
+            "count": torch.tensor(3, dtype=torch.int32, device=cuda)}
+    pool = Pool(Topology(n_server_nodes=2, engines_per_node=2))
+    ckp = Checkpointer(DFS(pool.create_container("g", oclass="RP_2GX")),
+                       oclass="RP_2GX", n_writers=2)
+    before = ck.CHECKSUM_LAUNCHES
+    ev = ckp.async_save(1, tree)
+    assert ck.CHECKSUM_LAUNCHES == before + 3     # on this thread, at once
+    want = {k: v.clone() for k, v in tree.items()}
+    tree["w"].zero_()
+    ev.wait()
+    back = ckp.restore(1, tree)
+    assert ck.CHECKSUM_LAUNCHES == before + 6
+    for k, v in want.items():
+        assert back[k].device.type == "cuda" and torch.equal(back[k], v)
