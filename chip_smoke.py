@@ -55,6 +55,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -94,10 +95,12 @@ KERNEL_CASES = [
 # relative), so out is held at 1e-2 and the fp32 lse at 1e-3.
 TOL = {"float32": {"out": 3e-4, "lse": 3e-4},
        "bfloat16": {"out": 1e-2, "lse": 1e-3}}
-# Backward kernels vs their plain twin.  fp32: the reference tests' 4e-3
-# for gradients.  bf16: the kernels compute in fp32 from bf16 inputs like
-# the twin and round dq/dk/dv once (2^-8 relative), so each is held at
-# 1e-2 relative plus 1e-2 of its largest |value| (sums over up to 4096 keys
+# Backward kernels vs their plain twin (fp32 throughout).  fp32: the
+# reference tests' 4e-3 for gradients (scalar fp32 kernels).  bf16: the
+# tensor-core kernels sum exact products of the bf16 inputs in fp32, round
+# p and ds to bf16 once as the operands of p.dO, ds.k and ds.q, and round
+# dq/dk/dv once when stored (each 2^-9 relative), so each is held at 1e-2
+# relative plus 1e-2 of its largest |value| (sums over up to 4096 keys
 # cancel, so single elements can be far below the tensor's scale).
 BWD_CASES = KERNEL_CASES[:6] + [(1, 333, 6, 3, 256, True, 100, 0),
                                 TRAIN_CASE]
@@ -108,15 +111,19 @@ GRAD_TOL = {"float32": (4e-3, 4e-3), "bfloat16": (1e-2, 1e-2)}
 # the rows (queries for out and dq, keys for dk and dv) are cut into
 # ROW_BLOCKS blocks, and each block's norm of the difference over the
 # twin's norm must stay under the limit.  One bf16 rounding gives about
-# 2^-9/sqrt(3) = 1.1e-3; fp32 differs only in summation order.
+# 2^-9/sqrt(3) = 1.1e-3; the backward's roundings of p, ds and the output
+# 2.4-2.7e-3 (their emulation on the CPU, tests/test_torch_flash_bwd.py);
+# fp32 differs only in summation order.
 ROW_BLOCKS = 8
 BLOCK_REL_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
 # One layer of deepseek-7b's stacked w_gate gradient, as the quantizer sees
 # it in the training step: 4096 x 11008 values = 44,032 groups.
 QUANT_LEAF = (4096, 11008)
-# Training slice, kernel path (fp32 p, fp32 dq/dk/dv accumulation) vs the
-# plain blockwise path (bf16 p before P.V, autograd of the online softmax),
-# bf16 over 30 layers, from the same params and batch (both deterministic).
+# Training slice, kernel path (forward: fp32 p; backward: p and ds rounded
+# to bf16 before the second-stage products, fp32 dq/dk/dv accumulation) vs
+# the plain blockwise path (bf16 p before P.V, autograd of the online
+# softmax), bf16 over 30 layers, from the same params and batch (both
+# deterministic).
 # The loss and global grad norm are held at about 10x what they read on an
 # H100 80GB HBM3 at 700 W (3.2e-5 and 2.0e-4 relative); each leaf's
 # gradient at 1e-1 relative (norm of the difference over the plain norm;
@@ -155,6 +162,9 @@ CKPT_LAYERS = 2
 CKPT_STEPS = 10
 CKPT_EVERY = 3
 CKPT_KILL_AT = 7
+# The bf16 backward kernels, which must multiply on the tensor cores: their
+# SASS holds HMMA (mma.sync) or HGMMA (wgmma) instructions.
+TC_KERNELS = ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
 
 
 def fail(msg: str) -> None:
@@ -229,6 +239,29 @@ def make_qkv(case, dtype, gen):
     return (q, k, v), (q5, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3))
 
 
+def sass_mma_counts(lib) -> dict | None:
+    """The HMMA/HGMMA instruction count of each function in ``lib`` whose
+    name holds one of TC_KERNELS (every template instance), from
+    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+    from repro_torch.kernels import build
+    tool = build.cuda_tool("cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if any(k in m.group(1) for k in TC_KERNELS) \
+                else None
+            if fn:
+                counts[fn] = 0
+        elif fn and re.search(r"\bH(?:G)?MMA\b", line):
+            counts[fn] += 1
+    return counts
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -237,6 +270,13 @@ def phase_build() -> None:
         print(f"--- nvcc {name} ---\n{log.strip()}")
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "built": sorted(logs)}))
+    counts = sass_mma_counts(build.library_path("flash_bwd"))
+    print(json.dumps({"sass_mma_instructions": counts}))
+    if counts is not None and (
+            any(not any(k in fn for fn in counts) for k in TC_KERNELS)
+            or not all(counts.values())):
+        fail(f"a bf16 backward kernel has no tensor-core instruction: "
+             f"{counts}")
 
 
 def phase_kernels() -> float:
@@ -1012,7 +1052,7 @@ def phase_train_kernel_times() -> dict:
             is_causal=True), iters=5)
     bwd = lambda: fa.flash_bwd(q5, k4, v4, do5, lse, delta, causal=True)
     pair_ms = cuda_ms(bwd, iters=5)
-    per = _profiled_ms(bwd, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+    per = _profiled_ms(bwd, TC_KERNELS)
     plain_ms = cuda_ms(lambda: fa.flash_bwd_reference(
         q5, k4, v4, do5, lse, delta, causal=True), iters=2, warmup=1)
     qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
@@ -1075,10 +1115,10 @@ def phase_train_kernel_times() -> dict:
             "sdpa_fwd_train_shape_ms": sdpa_fwd_ms,
             "flash_bwd_pair_ms": pair_ms,
             "flash_bwd_pair_bound_ms": pair_bound[0],
-            "flash_bwd_dq": {"ms": per["flash_bwd_dq_kernel"],
+            "flash_bwd_dq": {"ms": per["flash_bwd_dq_tc_kernel"],
                              "bound_ms": dq_bound[0],
                              "bound_by": dq_bound[1]},
-            "flash_bwd_dkv": {"ms": per["flash_bwd_dkv_kernel"],
+            "flash_bwd_dkv": {"ms": per["flash_bwd_dkv_tc_kernel"],
                               "bound_ms": dkv_bound[0],
                               "bound_by": dkv_bound[1]},
             "flash_bwd_plain_pair_ms": plain_ms,

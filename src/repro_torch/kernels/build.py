@@ -25,12 +25,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str | None:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``), or None."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
-    if path.exists():
-        return str(path)
-    found = shutil.which("nvcc")
+    path = Path(cuda_home) / "bin" / name
+    return str(path) if path.exists() else shutil.which(name)
+
+
+def _nvcc() -> str:
+    found = cuda_tool("nvcc")
     if found is None:
         raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
                            "machine with the CUDA toolkit")

@@ -12,31 +12,71 @@
 //   ds = p * (dO.v^T - delta) * scale,
 //   dq = ds.k                 (one q tile, all kv tiles),
 //   dk = sum ds^T.q, dv = sum p^T.dO  (one kv tile, all G groups and q
-//                                       tiles),
-// each accumulated in fp32 and written once in its input's dtype.  Each
-// output has exactly one writer block, so both passes are deterministic
-// (no atomics).
+//                                       tiles).
+// Each output has exactly one writer block, so both passes are
+// deterministic (no atomics).  A fused one-pass design (5 products, dq
+// summed with fp32 atomics) would give that up.
 //
 // What bounds it on this card.  At the training slice's shape (B=2, 32
-// heads, S=4096, D=128, causal, bf16) the dq pass does 3 products of the
-// causal triangle (q.k, dO.v, ds.k) and the dk/dv pass 4 (q.k, dO.v, p.dO,
-// ds.q): ~0.41 and ~0.55 TFLOP against ~0.2 GB of operands, far above the
-// H100's bf16 ridge, so a tensor-core kernel would be bound by operations.
-// This first version multiplies on the fp32 CUDA cores (scalar FMA, 67
-// TFLOP/s peak), the design of the forward kernel.
+// heads, S=4096, D=128, causal, bf16) each product over the causal
+// triangle is 2*B*H*D*S(S+1)/2 = 1.375e11 FLOP; the dq pass does 3 (q.k,
+// dO.v, ds.k) and the dk/dv pass 4 (q.k, dO.v, p^T.dO, ds^T.q) against
+// ~0.2 GB of operands, far above the H100's bf16 ridge: both passes are
+// bound by operations, and only the tensor cores (989 TFLOP/s bf16, dense)
+// can approach the bound.
 //
-// What the design does about it.
-//   * Tiles of 16*R rows (R = 4, or 2 for D > 128 so that a block stays
-//     under the 227 KB of shared memory); 256 threads, each owning an RxR
-//     patch of the score tile and R rows x NC columns of its fp32
-//     accumulators, so every shared-memory read feeds R FMAs.  Operand
-//     tiles are staged in shared memory as fp32 with odd row strides.
-//   * dq: one block per (q tile, batch x head x group), looping over kv
-//     tiles; dk/dv: one block per (kv tile, batch x head), looping over the
-//     G query groups and the q tiles, which sums GQA groups in registers.
+// bf16 inputs (dtype 1, the training path): the *_tc kernels below.
+//   * Every product runs on the tensor cores as
+//     mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32, fp32 accumulators in
+//     registers, operands fed by ldmatrix (.trans for the operand read
+//     across its rows: k in ds.k, q and dO in the dk/dv pass).
+//   * Rounding: s = q.k and dP = dO.v are exact products summed in fp32;
+//     p = exp(s*scale - lse) and ds = p*(dP - delta)*scale are fp32 and
+//     are rounded to bf16 once, as the A operand of the second-stage
+//     products (p before p^T.dO, ds before ds.k and ds^T.q); dq, dk and dv
+//     are summed in fp32 and rounded to bf16 once, when stored.
+//   * Operands sit in shared memory as bf16 (half the bytes of fp32), in
+//     rows of KD + 8 elements (KD = D rounded up to 64, 128 or 256): the
+//     16-byte pad puts the 8 rows of each ldmatrix 8x8 load in distinct
+//     banks.  Columns from D up to the next multiple of 16 are zero, so D
+//     = 40, 80, ... take whole k-steps of 16; zeros change no product.
+//   * Loads are 16-byte cp.async.cg into a ring of 2 stages: the next
+//     streamed tile (k/v in the dq pass; q/dO with their lse/delta rows in
+//     the dk/dv pass) loads while the current one multiplies, one barrier
+//     an iteration.  The tile that stays (q/dO, resp. k/v) is loaded once
+//     per block.  Each thread's copy addresses are computed once a tile
+//     (every instruction besides the HMMAs competes with them for the warp
+//     schedulers' dispatch slots); rows past S or Sk are zero-filled by
+//     the copy itself.  A pointer or stride that is not 16-byte aligned,
+//     or D not a multiple of 8, takes plain 2-byte loads into the same
+//     layout.
+//   * The mask is applied per element only in the 16-row warp patches
+//     that the causal / window / prefix boundary or a ragged edge crosses;
+//     elsewhere p = 2^(s*scale*log2(e) - lse*log2(e)), one FFMA and one
+//     MUFU.EX2.  D == 128 has its own instances with no column guards.
+//   * 64 resident rows per block, 4 warps of 16 rows; each warp keeps its
+//     16 x D output accumulators in registers.  dk/dv: each warp computes
+//     S^T = K.Q^T and dP^T = V.dO^T for its 16 kv rows against 64 streamed
+//     q rows; p and ds stay in registers (the m16n8 accumulators of two
+//     adjacent n8 tiles are exactly the m16k16 A fragment) and feed
+//     p^T.dO and ds^T.q directly, with no round trip through shared
+//     memory.  dq: ds stays in registers as the A operand of ds.k.  At
+//     D=128 the dq pass takes 70 KB of shared memory (3 blocks an SM), the
+//     dk/dv pass 106 KB (2 blocks an SM).  D > 128 splits the output
+//     columns over two blocks (blockIdx.z), each recomputing the scores,
+//     so that the accumulators fit in registers.
+//   * dq: one block per (q tile, batch x head x group), the longest causal
+//     q tiles first (blockIdx.x reversed) so the tail is short; dk/dv: one
+//     block per (kv tile, batch x head), looping over the G query groups
+//     and the q tiles, which sums GQA groups in registers.
 //   * Tiles that the causal or window mask hides entirely are skipped (a
 //     tile that `prefix` opens never is); within a tile the mask is exact,
 //     ragged rows and columns past S or Sk get p = 0.
+//
+// fp32 inputs (dtype 0) keep the first design, scalar FMA on the CUDA
+// cores with fp32 tiles in shared memory (the templates without _tc):
+// TF32 tensor cores would not hold the fp32 limits of 4e-3 elementwise
+// and 1e-3 per row block, and fp32 is a test-only dtype on the card.
 //
 // All tensors are read and written through their strides (the last
 // dimension must be contiguous), so the wrapper passes permuted views of
@@ -71,21 +111,15 @@ struct Params {
   int B, H, G, S, Sk, D, ld;
   int causal, window, prefix;
   float scale;
+  int vec;  // bf16 path: every operand row 16-byte aligned, D % 8 == 0
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ bool allowed(const Params& p, int qi, int ki) {
   bool allow = true;
@@ -106,7 +140,7 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int64_t sstride,
   }
 }
 
-// ---------------------------------------------------------------- dq pass
+// ---------------------------------------------------------- fp32: dq pass
 template <typename T, int R, int NC>
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(Params p) {
   constexpr int BQ = 16 * R, BK = 16 * R, ldp = BK + 1;
@@ -232,7 +266,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(Params p) {
   }
 }
 
-// ------------------------------------------------------------- dk/dv pass
+// ------------------------------------------------------- fp32: dk/dv pass
 template <typename T, int R, int NC>
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(Params p) {
   constexpr int BQ = 16 * R, BK = 16 * R, ldp = BQ + 1;
@@ -374,6 +408,545 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(Params p) {
   }
 }
 
+// ------------------------------------------------- bf16: tensor-core path
+using bf16 = __nv_bfloat16;
+
+constexpr int TC_ROWS = 64;     // resident rows a block: 4 warps x 16
+constexpr int TC_THREADS = 128;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float NEG2 = NEG * LOG2E;  // the mask sentinel in log2 units
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// 16-byte asynchronous copy; bytes past src_bytes (0 or 16) are zeroed.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// d += a.b: a 16x16 (row), b 16x8 (col), bf16 in, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x, one MUFU.EX2 (a few ulp; -1e30 * log2(e) gives 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The m16n8 accumulators of n tiles 2t and 2t+1, rounded to bf16, as the
+// m16k16 A fragment of k-step t.
+template <int NT>
+__device__ __forceinline__ void to_a_frags(const float (&c)[NT][4],
+                                           uint32_t (&a)[NT / 2][4]) {
+#pragma unroll
+  for (int t = 0; t < NT / 2; ++t) {
+    a[t][0] = pack_bf16(c[2 * t][0], c[2 * t][1]);
+    a[t][1] = pack_bf16(c[2 * t][2], c[2 * t][3]);
+    a[t][2] = pack_bf16(c[2 * t + 1][0], c[2 * t + 1][1]);
+    a[t][3] = pack_bf16(c[2 * t + 1][2], c[2 * t + 1][3]);
+  }
+}
+
+// ldmatrix row / column of this lane within a 16x16 tile: for an A operand
+// stored [m][k] and for a B operand stored [k][n] (read with .trans) ...
+__device__ __forceinline__ int a_row(int lane) {
+  return (lane & 7) + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int a_col(int lane) { return (lane >> 4) * 8; }
+// ... and for a B operand stored [n][k] (two n8 tiles).
+__device__ __forceinline__ int b_row(int lane) {
+  return (lane & 7) + (lane >> 4) * 8;
+}
+__device__ __forceinline__ int b_col(int lane) {
+  return ((lane >> 3) & 1) * 8;
+}
+
+// True when every (qi, ki) with qi in [qlo, qhi], ki in [klo, khi] lies in
+// range and is allowed, so that the patch needs no per-element mask (a
+// patch opened only partly by `prefix` takes the masked path).
+__device__ __forceinline__ bool all_open(const Params& p, int qlo, int qhi,
+                                         int klo, int khi) {
+  if (qhi >= p.S || khi >= p.Sk) return false;
+  bool open = true;
+  if (p.causal) open = khi <= qlo;
+  if (p.window) open = open && (qhi - klo) < p.window;
+  if (p.prefix) open = open || khi < p.prefix;
+  return open;
+}
+
+// Rows [r0, r0 + ROWS) of a (.., D) bf16 operand with row stride rs into a
+// ROWS x (KD + 8) shared tile, columns [0, dpad), zeros past n rows or D
+// columns.  vec: each thread copies one 16-byte column chunk of every
+// (TC_THREADS / (KD / 8))-th row with cp.async, its pointers computed once
+// (the copies land at the next wait); else plain 2-byte loads.  FULLD: D
+// == KD, no column to mask.
+template <int ROWS, int KD, bool FULLD>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          int64_t rs, int r0, int n, int D,
+                                          int dpad, bool vec) {
+  constexpr int LDS = KD + 8, CH = KD / 8, RSTEP = TC_THREADS / CH;
+  static_assert(ROWS % RSTEP == 0, "rows per pass must divide the tile");
+  if (vec) {
+    const int r = threadIdx.x / CH, c = (threadIdx.x % CH) * 8;
+    if (!FULLD && c >= dpad) return;
+    const bool col_ok = FULLD || c < D;
+    const bf16* s = src + (r0 + r) * rs + c;
+    const uint32_t d = smem_addr(dst + r * LDS + c);
+#pragma unroll
+    for (int m = 0; m < ROWS / RSTEP; ++m) {
+      const bool ok = col_ok && r0 + r + m * RSTEP < n;
+      cp_async16(d + m * RSTEP * LDS * 2, ok ? s + m * RSTEP * rs : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * KD; e += TC_THREADS) {
+      const int r = e / KD, c = e % KD;
+      if (c >= dpad) continue;
+      const int i = r0 + r;
+      dst[r * LDS + c] =
+          (i < n && c < D) ? src[i * rs + c] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// fp32 rows [r0, r0 + ROWS) of lse or delta, zeros past n.
+template <int ROWS>
+__device__ __forceinline__ void load_f32(float* dst, const float* src, int r0,
+                                         int n) {
+  for (int e = threadIdx.x; e < ROWS; e += TC_THREADS) {
+    const bool ok = r0 + e < n;
+    cp_async4(smem_addr(dst + e), ok ? src + r0 + e : src, ok ? 4 : 0);
+  }
+}
+
+// dq pass: q/dO tile of 64 rows resident, k/v tiles of BS rows streamed.
+// FULLD: D == KD == DOUT (no padded or split columns).
+template <int KD, int DOUT, int BS, bool FULLD, int MINB>
+__global__ void __launch_bounds__(TC_THREADS, MINB)
+    flash_bwd_dq_tc_kernel(Params p) {
+  static_assert(!FULLD || DOUT == KD, "FULLD needs one column block");
+  constexpr int LDS = KD + 8, NT = BS / 8, NO = DOUT / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(tc_smem);  // TC_ROWS x LDS
+  bf16* sDO = sQ + TC_ROWS * LDS;                // TC_ROWS x LDS
+  bf16* sK = sDO + TC_ROWS * LDS;                // 2 stages x BS x LDS
+  bf16* sV = sK + 2 * BS * LDS;                  // 2 stages x BS x LDS
+
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int n_tiles = (p.S + TC_ROWS - 1) / TC_ROWS;
+  const int q0 = (n_tiles - 1 - static_cast<int>(blockIdx.x)) * TC_ROWS;
+  const int bh = blockIdx.y;
+  const int g = bh % p.G, h = (bh / p.G) % p.H, b = bh / (p.G * p.H);
+  const int c0 = FULLD ? 0 : blockIdx.z * DOUT;
+  const int D = FULLD ? KD : p.D, dpad = FULLD ? KD : (D + 15) & ~15;
+  const bool vec = p.vec != 0;
+
+  const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh +
+                   g * p.q_sg;
+  const bf16* dop = static_cast<const bf16*>(p.dout) + b * p.do_sb +
+                    h * p.do_sh + g * p.do_sg;
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const int64_t row0 = (static_cast<int64_t>(b * p.H + h) * p.G + g) * p.S;
+
+  // kv range this q tile can see (as in the forward kernel).
+  int hi = p.Sk;
+  if (p.causal) hi = min(p.Sk, max(q0 + TC_ROWS, p.prefix));
+  int lo = 0;
+  if (p.window > 0 && p.prefix == 0) lo = max(0, q0 - p.window + 1);
+  lo = (lo / BS) * BS;
+  const int n_kv = hi > lo ? (hi - lo + BS - 1) / BS : 0;
+
+  load_rows<TC_ROWS, KD, FULLD>(sQ, qp, p.q_ss, q0, p.S, D, dpad, vec);
+  load_rows<TC_ROWS, KD, FULLD>(sDO, dop, p.do_ss, q0, p.S, D, dpad, vec);
+  if (n_kv > 0) {
+    load_rows<BS, KD, FULLD>(sK, kp, p.k_ss, lo, p.Sk, D, dpad, vec);
+    load_rows<BS, KD, FULLD>(sV, vp, p.v_ss, lo, p.Sk, D, dpad, vec);
+  }
+  cp_async_commit();
+
+  // this thread's accumulator rows: qr and qr + 8
+  const int qr = q0 + 16 * w + g8;
+  const float c2 = p.scale * LOG2E;
+  float lse2[2], dlts[2];  // lse in log2 units, delta * scale
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = qr + 8 * r;
+    lse2[r] = qi < p.S ? p.lse[row0 + qi] * LOG2E : 0.f;
+    dlts[r] = qi < p.S ? p.delta[row0 + qi] * p.scale : 0.f;
+  }
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const bf16* aQ = sQ + (16 * w + a_row(lane)) * LDS + a_col(lane);
+  const bf16* aDO = sDO + (16 * w + a_row(lane)) * LDS + a_col(lane);
+  for (int it = 0; it < n_kv; ++it) {
+    const int k0 = lo + it * BS;
+    const bf16* cK = sK + (it & 1) * BS * LDS;
+    const bf16* cV = sV + (it & 1) * BS * LDS;
+    // tile `it` has landed, and every warp is done with tile it - 1, whose
+    // stage the next tile now fills while this one multiplies
+    cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < n_kv) {
+      const int nxt = ((it + 1) & 1) * BS * LDS;
+      load_rows<BS, KD, FULLD>(sK + nxt, kp, p.k_ss, k0 + BS, p.Sk, D, dpad,
+                               vec);
+      load_rows<BS, KD, FULLD>(sV + nxt, vp, p.v_ss, k0 + BS, p.Sk, D, dpad,
+                               vec);
+    }
+    cp_async_commit();
+
+    // s = q.k^T and dp = dO.v^T for this warp's 16 rows x BS columns
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KD / 16; ++ks) {
+      if (FULLD || ks * 16 < dpad) {
+        uint32_t aq[4], ao[4];
+        ldsm_x4(smem_addr(aQ + 16 * ks), aq);
+        ldsm_x4(smem_addr(aDO + 16 * ks), ao);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          const int off = (16 * np + b_row(lane)) * LDS + 16 * ks + b_col(lane);
+          uint32_t bk[4], bv[4];
+          ldsm_x4(smem_addr(cK + off), bk);
+          ldsm_x4(smem_addr(cV + off), bv);
+          mma_bf16(s[2 * np], aq, bk[0], bk[1]);
+          mma_bf16(s[2 * np + 1], aq, bk[2], bk[3]);
+          mma_bf16(dp[2 * np], ao, bv[0], bv[1]);
+          mma_bf16(dp[2 * np + 1], ao, bv[2], bv[3]);
+        }
+      }
+    }
+
+    // ds = p * (dp - delta) * scale in fp32, p = exp(s*scale + mask - lse);
+    // the per-element mask only where this warp's 16 x BS patch needs it
+    const bool open = all_open(p, q0 + 16 * w, q0 + 16 * w + 15, k0,
+                               k0 + BS - 1);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pv;
+        if (open) {
+          pv = exp2_approx(s[j][e] * c2 - lse2[e >> 1]);
+        } else {
+          const int qi = qr + (e >> 1) * 8;
+          const int ki = k0 + 8 * j + 2 * t4 + (e & 1);
+          const float val = allowed(p, qi, ki) ? s[j][e] * c2 : NEG2;
+          pv = (qi < p.S && ki < p.Sk) ? exp2_approx(val - lse2[e >> 1])
+                                       : 0.f;
+        }
+        s[j][e] = pv * (dp[j][e] * p.scale - dlts[e >> 1]);
+      }
+    uint32_t ads[NT / 2][4];
+    to_a_frags<NT>(s, ads);
+
+    // dq += ds.k, k read across its rows (.trans)
+#pragma unroll
+    for (int t = 0; t < NT / 2; ++t)
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        if (FULLD || c0 + 16 * np < D) {
+          uint32_t bk[4];
+          ldsm_x4_t(smem_addr(cK + (16 * t + a_row(lane)) * LDS + c0 +
+                              16 * np + a_col(lane)), bk);
+          mma_bf16(acc[2 * np], ads[t], bk[0], bk[1]);
+          mma_bf16(acc[2 * np + 1], ads[t], bk[2], bk[3]);
+        }
+      }
+  }
+  cp_async_wait_all();
+
+  bf16* dqp = static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh +
+              g * p.dq_sg;
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = qr + (e >> 1) * 8, d = c0 + 8 * n + 2 * t4 + (e & 1);
+      if (qi < p.S && (FULLD || d < D))
+        dqp[qi * p.dq_ss + d] = __float2bfloat16(acc[n][e]);
+    }
+}
+
+// dk/dv pass: k/v tile of 64 rows resident, q/dO tiles of BS rows (and
+// their lse/delta) streamed over the G groups and the q range.
+template <int KD, int DOUT, int BS, bool FULLD, int MINB>
+__global__ void __launch_bounds__(TC_THREADS, MINB)
+    flash_bwd_dkv_tc_kernel(Params p) {
+  static_assert(!FULLD || DOUT == KD, "FULLD needs one column block");
+  constexpr int LDS = KD + 8, NT = BS / 8, NO = DOUT / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* sK = reinterpret_cast<bf16*>(tc_smem);  // TC_ROWS x LDS
+  bf16* sV = sK + TC_ROWS * LDS;                 // TC_ROWS x LDS
+  bf16* sQ = sV + TC_ROWS * LDS;                 // 2 stages x BS x LDS
+  bf16* sDO = sQ + 2 * BS * LDS;                 // 2 stages x BS x LDS
+  float* sL = reinterpret_cast<float*>(sDO + 2 * BS * LDS);  // 2 x BS
+  float* sD = sL + 2 * BS;                                    // 2 x BS
+
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int k0 = blockIdx.x * TC_ROWS;
+  const int bh = blockIdx.y;
+  const int h = bh % p.H, b = bh / p.H;
+  const int c0 = FULLD ? 0 : blockIdx.z * DOUT;
+  const int D = FULLD ? KD : p.D, dpad = FULLD ? KD : (D + 15) & ~15;
+  const bool vec = p.vec != 0;
+
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* dob = static_cast<const bf16*>(p.dout) + b * p.do_sb +
+                    h * p.do_sh;
+  const int64_t rowb = static_cast<int64_t>(b * p.H + h) * p.G * p.S;
+
+  // q range that can see this kv tile.  A tile holding a prefix column is
+  // seen by every query.
+  int qlo = 0, qhi = p.S;
+  if (!(p.prefix > 0 && k0 < p.prefix)) {
+    if (p.causal) qlo = min(k0, p.S);
+    if (p.window > 0) qhi = min(p.S, min(k0 + TC_ROWS, p.Sk) - 1 + p.window);
+  }
+  qlo = (qlo / BS) * BS;
+  const int n_q = qhi > qlo ? (qhi - qlo + BS - 1) / BS : 0;
+  const int n_it = p.G * n_q;  // (group, q tile) pairs, group-major
+
+  // load stream tile `it` (group it / n_q) into stage `st`
+  auto load_stream = [&](int it, int st) {
+    const int gg = it / n_q, q0 = qlo + (it - gg * n_q) * BS;
+    load_rows<BS, KD, FULLD>(sQ + st * BS * LDS, qb + gg * p.q_sg, p.q_ss,
+                             q0, p.S, D, dpad, vec);
+    load_rows<BS, KD, FULLD>(sDO + st * BS * LDS, dob + gg * p.do_sg,
+                             p.do_ss, q0, p.S, D, dpad, vec);
+    load_f32<BS>(sL + st * BS, p.lse + rowb + gg * p.S, q0, p.S);
+    load_f32<BS>(sD + st * BS, p.delta + rowb + gg * p.S, q0, p.S);
+  };
+
+  load_rows<TC_ROWS, KD, FULLD>(sK, kp, p.k_ss, k0, p.Sk, D, dpad, vec);
+  load_rows<TC_ROWS, KD, FULLD>(sV, vp, p.v_ss, k0, p.Sk, D, dpad, vec);
+  if (n_it > 0) load_stream(0, 0);
+  cp_async_commit();
+
+  // this thread's accumulator rows: kr and kr + 8
+  const int kr = k0 + 16 * w + g8;
+  const float c2 = p.scale * LOG2E;
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  const bf16* aK = sK + (16 * w + a_row(lane)) * LDS + a_col(lane);
+  const bf16* aV = sV + (16 * w + a_row(lane)) * LDS + a_col(lane);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    const int gg = it / n_q, q0 = qlo + (it - gg * n_q) * BS;
+    const bf16* cQ = sQ + st * BS * LDS;
+    const bf16* cDO = sDO + st * BS * LDS;
+    const float* cL = sL + st * BS;
+    const float* cD = sD + st * BS;
+    // tile `it` has landed, and every warp is done with tile it - 1, whose
+    // stage the next tile now fills while this one multiplies
+    cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < n_it) load_stream(it + 1, st ^ 1);
+    cp_async_commit();
+
+    // s^T = k.q^T and dp^T = v.dO^T for this warp's 16 kv rows x BS q
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KD / 16; ++ks) {
+      if (FULLD || ks * 16 < dpad) {
+        uint32_t ak[4], av[4];
+        ldsm_x4(smem_addr(aK + 16 * ks), ak);
+        ldsm_x4(smem_addr(aV + 16 * ks), av);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          const int off = (16 * np + b_row(lane)) * LDS + 16 * ks + b_col(lane);
+          uint32_t bq[4], bo[4];
+          ldsm_x4(smem_addr(cQ + off), bq);
+          ldsm_x4(smem_addr(cDO + off), bo);
+          mma_bf16(s[2 * np], ak, bq[0], bq[1]);
+          mma_bf16(s[2 * np + 1], ak, bq[2], bq[3]);
+          mma_bf16(dp[2 * np], av, bo[0], bo[1]);
+          mma_bf16(dp[2 * np + 1], av, bo[2], bo[3]);
+        }
+      }
+    }
+
+    // p^T and ds^T in fp32 (s becomes p, dp becomes ds); the per-element
+    // mask only where this warp's 16 x BS patch needs it
+    const bool open = all_open(p, q0, q0 + BS - 1, k0 + 16 * w,
+                               k0 + 16 * w + 15);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int qc = 8 * j + 2 * t4 + c;
+        const float l2 = cL[qc] * LOG2E, dls = cD[qc] * p.scale;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 2 * r + c;
+          float pv;
+          if (open) {
+            pv = exp2_approx(s[j][e] * c2 - l2);
+          } else {
+            const int ki = kr + 8 * r, qi = q0 + qc;
+            const float val = allowed(p, qi, ki) ? s[j][e] * c2 : NEG2;
+            pv = (qi < p.S && ki < p.Sk) ? exp2_approx(val - l2) : 0.f;
+          }
+          s[j][e] = pv;
+          dp[j][e] = pv * (dp[j][e] * p.scale - dls);
+        }
+      }
+    uint32_t ap[NT / 2][4], ads[NT / 2][4];
+    to_a_frags<NT>(s, ap);
+    to_a_frags<NT>(dp, ads);
+
+    // dv += p^T.dO and dk += ds^T.q, dO and q read across their rows
+#pragma unroll
+    for (int t = 0; t < NT / 2; ++t)
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        if (FULLD || c0 + 16 * np < D) {
+          const int off = (16 * t + a_row(lane)) * LDS + c0 + 16 * np +
+                          a_col(lane);
+          uint32_t bo[4], bq[4];
+          ldsm_x4_t(smem_addr(cDO + off), bo);
+          ldsm_x4_t(smem_addr(cQ + off), bq);
+          mma_bf16(dv[2 * np], ap[t], bo[0], bo[1]);
+          mma_bf16(dv[2 * np + 1], ap[t], bo[2], bo[3]);
+          mma_bf16(dk[2 * np], ads[t], bq[0], bq[1]);
+          mma_bf16(dk[2 * np + 1], ads[t], bq[2], bq[3]);
+        }
+      }
+  }
+  cp_async_wait_all();
+
+  bf16* dkp = static_cast<bf16*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  bf16* dvp = static_cast<bf16*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ki = kr + (e >> 1) * 8, d = c0 + 8 * n + 2 * t4 + (e & 1);
+      if (ki < p.Sk && (FULLD || d < D)) {
+        dkp[ki * p.dk_ss + d] = __float2bfloat16(dk[n][e]);
+        dvp[ki * p.dv_ss + d] = __float2bfloat16(dv[n][e]);
+      }
+    }
+}
+
+template <typename Kernel>
+cudaError_t launch_tc(Kernel kernel, dim3 grid, size_t smem,
+                      cudaStream_t stream, const Params& p) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, TC_THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int KD, int DOUT, int BS, bool FULLD, int MINB>
+cudaError_t launch_dq_tc(const Params& p, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(2 * TC_ROWS + 4 * BS) * (KD + 8) *
+                      sizeof(bf16);
+  const dim3 grid((p.S + TC_ROWS - 1) / TC_ROWS, p.B * p.H * p.G,
+                  (p.D + DOUT - 1) / DOUT);
+  return launch_tc(flash_bwd_dq_tc_kernel<KD, DOUT, BS, FULLD, MINB>, grid,
+                   smem, stream, p);
+}
+
+template <int KD, int DOUT, int BS, bool FULLD, int MINB>
+cudaError_t launch_dkv_tc(const Params& p, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(2 * TC_ROWS + 4 * BS) * (KD + 8) *
+                          sizeof(bf16) + 4 * BS * sizeof(float);
+  const dim3 grid((p.Sk + TC_ROWS - 1) / TC_ROWS, p.B * p.H,
+                  (p.D + DOUT - 1) / DOUT);
+  return launch_tc(flash_bwd_dkv_tc_kernel<KD, DOUT, BS, FULLD, MINB>, grid,
+                   smem, stream, p);
+}
+
+// D == 128 (the models' head dim) takes instances without column guards:
+// the dq pass streams 32-row k/v tiles at 3 blocks an SM (168 registers,
+// 70 KB), the dk/dv pass 64-row q/dO tiles at 2 blocks an SM (255
+// registers, 106 KB).  Other D stream 64 rows, or 32 for D > 128, whose
+// output columns are split over two blocks.
+cudaError_t launch_tc_for_d(const Params& p, bool dkv, cudaStream_t stream) {
+  if (p.D == 128)
+    return dkv ? launch_dkv_tc<128, 128, 64, true, 2>(p, stream)
+               : launch_dq_tc<128, 128, 32, true, 3>(p, stream);
+  if (p.D <= 64)
+    return dkv ? launch_dkv_tc<64, 64, 64, false, 2>(p, stream)
+               : launch_dq_tc<64, 64, 64, false, 2>(p, stream);
+  if (p.D <= 128)
+    return dkv ? launch_dkv_tc<128, 128, 64, false, 2>(p, stream)
+               : launch_dq_tc<128, 128, 64, false, 2>(p, stream);
+  return dkv ? launch_dkv_tc<256, 128, 32, false, 1>(p, stream)
+             : launch_dq_tc<256, 128, 32, false, 1>(p, stream);
+}
+
 template <typename T, int R, int NC>
 cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
   constexpr int BT = 16 * R;
@@ -441,13 +1014,18 @@ int run(const void* q, const void* k, const void* v, const void* dout,
   p.window = window;
   p.prefix = prefix;
   p.scale = scale;
+  p.vec = p.D % 8 == 0;
+  const void* operands[] = {q, k, v, dout};
+  for (const void* ptr : operands)
+    p.vec = p.vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  for (int i = 0; i < 14; ++i) p.vec = p.vec && st[i] % 8 == 0;
   if (p.D < 1 || p.D > 256 || p.S < 1 || p.Sk < 1 ||
       static_cast<int64_t>(p.B) * p.H * p.G > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return static_cast<int>(launch_for_d<float>(p, dkv, s));
-    case 1: return static_cast<int>(launch_for_d<__nv_bfloat16>(p, dkv, s));
+    case 1: return static_cast<int>(launch_tc_for_d(p, dkv, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

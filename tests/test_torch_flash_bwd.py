@@ -74,6 +74,76 @@ def test_flash_bwd_matches_pallas_kernel(case):
                                    **GRAD_TOL)
 
 
+# bf16 limits of chip_smoke.py for the backward kernels against their twin:
+# elementwise 1e-2 relative plus 1e-2 of the largest |value|, and 1e-2 for
+# each of 8 row blocks' relative norm error.
+BF16_GRAD_TOL = 1e-2
+BF16_BLOCK_REL_TOL = 1e-2
+
+
+def _bf16(x):
+    return torch.tensor(np.asarray(x)).to(torch.bfloat16).float()
+
+
+def _bwd_tensor_core_roundings(q, k, v, do, lse, delta, causal, window,
+                               prefix):
+    """The bf16 backward kernels' arithmetic (csrc/flash_bwd.cu, *_tc): s and
+    dP as fp32 sums of exact products of bf16 inputs, p and ds in fp32, p and
+    ds rounded to bf16 before p.dO, ds.k and ds.q, fp32 sums, and dq, dk, dv
+    rounded to bf16 once."""
+    S, Sk, D = q.shape[3], k.shape[2], q.shape[4]
+    scale = 1.0 / np.sqrt(D)
+    allow = fa._allow(S, Sk, causal, window, prefix, "cpu")
+    s = torch.einsum("bhgqd,bhkd->bhgqk", q, k) * scale
+    p = torch.exp(s.masked_fill(~allow, fa.NEG) - lse[..., None])
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", do, v)
+    ds = p * (dp - delta[..., None]) * scale
+    p, ds = _bf16(p), _bf16(ds)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k)
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, q)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, do)
+    return _bf16(dq), _bf16(dk), _bf16(dv)
+
+
+@pytest.mark.parametrize("case", CASES + [
+    (1, 80, 4, 2, 128, True, 0, 0),     # S not a multiple of 64-row tiles
+    (2, 64, 4, 2, 40, True, 0, 0),      # D zero-padded to 48 in the kernel
+])
+def test_bf16_tensor_core_roundings_match_pallas_kernel(case):
+    """The rounding points of the bf16 tensor-core kernels, emulated on the
+    CPU, against the JAX ``flash_bwd_pallas`` (interpret mode, fp32) on the
+    same bf16-rounded inputs, under chip_smoke.py's bf16 limits."""
+    B, S, Hq, n_kv, D, causal, window, prefix = case
+    q, k, v, do = (_bf16(a).numpy() for a in _mk(case, seed=S + 3 * D))
+    q5, do5 = _five_d(q, n_kv), _five_d(do, n_kv)
+    k4 = np.ascontiguousarray(k.transpose(0, 2, 1, 3))
+    v4 = np.ascontiguousarray(v.transpose(0, 2, 1, 3))
+    mask = dict(causal=causal, window=window, prefix=prefix)
+    out, lse = flash_fwd_pallas(jnp.asarray(q5), jnp.asarray(k4),
+                                jnp.asarray(v4), bq=16, bk=16,
+                                interpret=True, **mask)
+    lse = np.asarray(lse)
+    delta = (do5 * _bf16(np.asarray(out)).numpy()).sum(-1) \
+        .astype(np.float32)
+    want = flash_bwd_pallas(jnp.asarray(q5), jnp.asarray(k4),
+                            jnp.asarray(v4), jnp.asarray(do5),
+                            jnp.asarray(lse), jnp.asarray(delta), bq=16,
+                            bk=16, interpret=True, **mask)
+    got = _bwd_tensor_core_roundings(
+        *(torch.from_numpy(a) for a in (q5, k4, v4, do5, lse, delta)),
+        **mask)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        w = torch.tensor(np.asarray(w))
+        assert g.shape == w.shape
+        torch.testing.assert_close(
+            g, w, rtol=BF16_GRAD_TOL,
+            atol=BF16_GRAD_TOL * float(w.abs().max()), msg=name)
+        for i, (gb, wb) in enumerate(zip(torch.tensor_split(g, 8, -2),
+                                         torch.tensor_split(w, 8, -2))):
+            rel = float((gb - wb).norm() / wb.norm())
+            assert rel <= BF16_BLOCK_REL_TOL, (name, i, rel)
+
+
 def _grads_torch(fn, q, k, v, do):
     ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
     out = fn(*ts)
