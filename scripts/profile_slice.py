@@ -28,7 +28,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 CATEGORIES = (
-    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_fwd", ("flash_fwd_",)),          # fp32 and bf16 (_tc_) kernels
     ("flash_bwd_dq", ("flash_bwd_dq_",)),     # fp32 and bf16 (_tc_) kernels
     ("flash_bwd_dkv", ("flash_bwd_dkv_",)),
     ("dequantize", ("dequantize_kernel",)),

@@ -86,6 +86,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
 constexpr int NTHREADS = 256;
@@ -409,99 +411,9 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(Params p) {
 }
 
 // ------------------------------------------------- bf16: tensor-core path
-using bf16 = __nv_bfloat16;
-
 constexpr int TC_ROWS = 64;     // resident rows a block: 4 warps x 16
 constexpr int TC_THREADS = 128;
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float NEG2 = NEG * LOG2E;  // the mask sentinel in log2 units
-
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// 16-byte asynchronous copy; bytes past src_bytes (0 or 16) are zeroed.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// d += a.b: a 16x16 (row), b 16x8 (col), bf16 in, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x, one MUFU.EX2 (a few ulp; -1e30 * log2(e) gives 0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The m16n8 accumulators of n tiles 2t and 2t+1, rounded to bf16, as the
-// m16k16 A fragment of k-step t.
-template <int NT>
-__device__ __forceinline__ void to_a_frags(const float (&c)[NT][4],
-                                           uint32_t (&a)[NT / 2][4]) {
-#pragma unroll
-  for (int t = 0; t < NT / 2; ++t) {
-    a[t][0] = pack_bf16(c[2 * t][0], c[2 * t][1]);
-    a[t][1] = pack_bf16(c[2 * t][2], c[2 * t][3]);
-    a[t][2] = pack_bf16(c[2 * t + 1][0], c[2 * t + 1][1]);
-    a[t][3] = pack_bf16(c[2 * t + 1][2], c[2 * t + 1][3]);
-  }
-}
-
-// ldmatrix row / column of this lane within a 16x16 tile: for an A operand
-// stored [m][k] and for a B operand stored [k][n] (read with .trans) ...
-__device__ __forceinline__ int a_row(int lane) {
-  return (lane & 7) + ((lane >> 3) & 1) * 8;
-}
-__device__ __forceinline__ int a_col(int lane) { return (lane >> 4) * 8; }
-// ... and for a B operand stored [n][k] (two n8 tiles).
-__device__ __forceinline__ int b_row(int lane) {
-  return (lane & 7) + (lane >> 4) * 8;
-}
-__device__ __forceinline__ int b_col(int lane) {
-  return ((lane >> 3) & 1) * 8;
-}
 
 // True when every (qi, ki) with qi in [qlo, qhi], ki in [klo, khi] lies in
 // range and is allowed, so that the patch needs no per-element mask (a
@@ -514,41 +426,6 @@ __device__ __forceinline__ bool all_open(const Params& p, int qlo, int qhi,
   if (p.window) open = open && (qhi - klo) < p.window;
   if (p.prefix) open = open || khi < p.prefix;
   return open;
-}
-
-// Rows [r0, r0 + ROWS) of a (.., D) bf16 operand with row stride rs into a
-// ROWS x (KD + 8) shared tile, columns [0, dpad), zeros past n rows or D
-// columns.  vec: each thread copies one 16-byte column chunk of every
-// (TC_THREADS / (KD / 8))-th row with cp.async, its pointers computed once
-// (the copies land at the next wait); else plain 2-byte loads.  FULLD: D
-// == KD, no column to mask.
-template <int ROWS, int KD, bool FULLD>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          int64_t rs, int r0, int n, int D,
-                                          int dpad, bool vec) {
-  constexpr int LDS = KD + 8, CH = KD / 8, RSTEP = TC_THREADS / CH;
-  static_assert(ROWS % RSTEP == 0, "rows per pass must divide the tile");
-  if (vec) {
-    const int r = threadIdx.x / CH, c = (threadIdx.x % CH) * 8;
-    if (!FULLD && c >= dpad) return;
-    const bool col_ok = FULLD || c < D;
-    const bf16* s = src + (r0 + r) * rs + c;
-    const uint32_t d = smem_addr(dst + r * LDS + c);
-#pragma unroll
-    for (int m = 0; m < ROWS / RSTEP; ++m) {
-      const bool ok = col_ok && r0 + r + m * RSTEP < n;
-      cp_async16(d + m * RSTEP * LDS * 2, ok ? s + m * RSTEP * rs : src,
-                 ok ? 16 : 0);
-    }
-  } else {
-    for (int e = threadIdx.x; e < ROWS * KD; e += TC_THREADS) {
-      const int r = e / KD, c = e % KD;
-      if (c >= dpad) continue;
-      const int i = r0 + r;
-      dst[r * LDS + c] =
-          (i < n && c < D) ? src[i * rs + c] : __float2bfloat16(0.f);
-    }
-  }
 }
 
 // fp32 rows [r0, r0 + ROWS) of lse or delta, zeros past n.
@@ -600,11 +477,15 @@ __global__ void __launch_bounds__(TC_THREADS, MINB)
   lo = (lo / BS) * BS;
   const int n_kv = hi > lo ? (hi - lo + BS - 1) / BS : 0;
 
-  load_rows<TC_ROWS, KD, FULLD>(sQ, qp, p.q_ss, q0, p.S, D, dpad, vec);
-  load_rows<TC_ROWS, KD, FULLD>(sDO, dop, p.do_ss, q0, p.S, D, dpad, vec);
+  load_tile_rows<TC_THREADS, TC_ROWS, KD, FULLD>(sQ, qp, p.q_ss, q0, p.S, D,
+                                                 dpad, vec);
+  load_tile_rows<TC_THREADS, TC_ROWS, KD, FULLD>(sDO, dop, p.do_ss, q0, p.S,
+                                                 D, dpad, vec);
   if (n_kv > 0) {
-    load_rows<BS, KD, FULLD>(sK, kp, p.k_ss, lo, p.Sk, D, dpad, vec);
-    load_rows<BS, KD, FULLD>(sV, vp, p.v_ss, lo, p.Sk, D, dpad, vec);
+    load_tile_rows<TC_THREADS, BS, KD, FULLD>(sK, kp, p.k_ss, lo, p.Sk, D,
+                                              dpad, vec);
+    load_tile_rows<TC_THREADS, BS, KD, FULLD>(sV, vp, p.v_ss, lo, p.Sk, D,
+                                              dpad, vec);
   }
   cp_async_commit();
 
@@ -637,10 +518,10 @@ __global__ void __launch_bounds__(TC_THREADS, MINB)
     __syncthreads();
     if (it + 1 < n_kv) {
       const int nxt = ((it + 1) & 1) * BS * LDS;
-      load_rows<BS, KD, FULLD>(sK + nxt, kp, p.k_ss, k0 + BS, p.Sk, D, dpad,
-                               vec);
-      load_rows<BS, KD, FULLD>(sV + nxt, vp, p.v_ss, k0 + BS, p.Sk, D, dpad,
-                               vec);
+      load_tile_rows<TC_THREADS, BS, KD, FULLD>(sK + nxt, kp, p.k_ss, k0 + BS,
+                                                p.Sk, D, dpad, vec);
+      load_tile_rows<TC_THREADS, BS, KD, FULLD>(sV + nxt, vp, p.v_ss, k0 + BS,
+                                                p.Sk, D, dpad, vec);
     }
     cp_async_commit();
 
@@ -766,16 +647,19 @@ __global__ void __launch_bounds__(TC_THREADS, MINB)
   // load stream tile `it` (group it / n_q) into stage `st`
   auto load_stream = [&](int it, int st) {
     const int gg = it / n_q, q0 = qlo + (it - gg * n_q) * BS;
-    load_rows<BS, KD, FULLD>(sQ + st * BS * LDS, qb + gg * p.q_sg, p.q_ss,
-                             q0, p.S, D, dpad, vec);
-    load_rows<BS, KD, FULLD>(sDO + st * BS * LDS, dob + gg * p.do_sg,
-                             p.do_ss, q0, p.S, D, dpad, vec);
+    load_tile_rows<TC_THREADS, BS, KD, FULLD>(
+        sQ + st * BS * LDS, qb + gg * p.q_sg, p.q_ss, q0, p.S, D, dpad, vec);
+    load_tile_rows<TC_THREADS, BS, KD, FULLD>(
+        sDO + st * BS * LDS, dob + gg * p.do_sg, p.do_ss, q0, p.S, D, dpad,
+        vec);
     load_f32<BS>(sL + st * BS, p.lse + rowb + gg * p.S, q0, p.S);
     load_f32<BS>(sD + st * BS, p.delta + rowb + gg * p.S, q0, p.S);
   };
 
-  load_rows<TC_ROWS, KD, FULLD>(sK, kp, p.k_ss, k0, p.Sk, D, dpad, vec);
-  load_rows<TC_ROWS, KD, FULLD>(sV, vp, p.v_ss, k0, p.Sk, D, dpad, vec);
+  load_tile_rows<TC_THREADS, TC_ROWS, KD, FULLD>(sK, kp, p.k_ss, k0, p.Sk, D,
+                                                 dpad, vec);
+  load_tile_rows<TC_THREADS, TC_ROWS, KD, FULLD>(sV, vp, p.v_ss, k0, p.Sk, D,
+                                                 dpad, vec);
   if (n_it > 0) load_stream(0, 0);
   cp_async_commit();
 

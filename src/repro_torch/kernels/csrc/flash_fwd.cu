@@ -3,33 +3,72 @@
 // Replaces the TPU kernel `flash_fwd_pallas` (body `_fwd_kernel`) of
 // src/repro/kernels/flash_attention.py.  Same function: online-softmax
 // attention of q (B, n_kv, G, S, D) over k, v (B, n_kv, Sk, D) with causal,
-// sliding-window and prefix-LM masks built from indices, returning `out` in
-// q's dtype and the fp32 log-sum-exp `lse = m + log(max(l, 1e-30))`.  q head
-// (h, g) reads kv head h, so GQA needs no repeated k/v.
+// sliding-window and prefix-LM masks built from indices and the finite
+// -1e30 sentinel, columns past Sk at -inf, returning `out` in q's dtype
+// and the fp32 log-sum-exp `lse = m + log(max(l, 1e-30))`.  q head (h, g)
+// reads kv head h, so GQA needs no repeated k/v.
 //
-// What bounds it on this card.  At the serving slice's shape (B=4, 32
-// heads, S=1024, D=128, causal, bf16) the work is ~34 GFLOP of causal
-// products over ~134 MB of q/k/v/out: ~256 FLOP per byte, just under the
-// H100's bf16 ridge of ~295, so a tensor-core kernel would be bound by
-// bytes.  This first kernel multiplies on the fp32 CUDA cores (scalar FMA),
-// whose 67 TFLOP/s peak makes it bound by operations instead.
+// What bounds it on this card.  At the training slice's shape (B=2, 32
+// heads, S=4096, D=128, causal, bf16) the two products over the causal
+// triangle are 2.75e11 FLOP against ~0.27 GB of q/k/v/out: ~1000 FLOP a
+// byte, far above the H100's bf16 ridge of ~295, so the kernel is bound by
+// operations, and only the tensor cores (989 TFLOP/s bf16, dense) come
+// near the bound.  At the serving shape (B=4, S=1024) it is ~256 FLOP a
+// byte, about at the ridge: there the bytes bound it, barely.
 //
-// What the design does about it.
-//   * One thread block per (64-row q tile, batch x head); the q tile is
-//     staged once in shared memory and reused over the whole kv sweep.
-//   * k/v tiles of 64 rows are staged in shared memory as fp32; each of the
-//     256 threads owns a 4x4 patch of the 64x64 score tile and 4 rows of the
-//     output accumulator, so every shared-memory read feeds 4 FMAs.  Row
-//     strides are odd, so the 16 threads of a half-warp hit 16 banks.
-//   * kv tiles that the causal or window mask hides entirely are skipped,
-//     which halves the causal work.  A finite sentinel (-1e30, as in the
-//     TPU kernel) marks masked scores, so a row whose first visited tile is
-//     wholly masked accumulates values that the next tile's
-//     alpha = exp(-1e30 - m) = 0 wipes out; columns past Sk get -inf and
-//     never count.
-//   * The running max, sum and accumulator stay in registers in fp32; the
-//     probabilities go through shared memory for the P.V product.
-// Tensor cores (mma.sync / wgmma) and TMA are the next step.
+// bf16 inputs (dtype 1, serving and training): flash_fwd_tc_kernel.
+//   * Both products run on the tensor cores as
+//     mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 with fp32 accumulators:
+//     S = Q.K^T with k as stored ([n][k], plain ldmatrix), O += P.V with v
+//     read across its rows (ldmatrix .trans).  Each warp owns 32 q rows, two
+//     m16 tiles, so that every k and v fragment it loads feeds both; their
+//     Q fragments come from the q tile, resident in shared memory.
+//   * P stays in registers: the m16n8 accumulators of two adjacent n8 score
+//     tiles are exactly the m16k16 A fragment of P.V, so p is rounded to
+//     bf16 once, as that operand, and never touches shared memory.  The
+//     row max reduces over the 4 lanes that share a row (two shuffles); the
+//     row sum l is kept per lane, from the fp32 p before rounding, and
+//     reduced once at the end; alpha = 2^(m_old - m_new) rescales the O
+//     accumulators once a tile.  p is one FFMA and one MUFU.EX2 in log2
+//     units (the -1e30 sentinel becomes NEG2); lse is converted back to
+//     natural log when stored.
+//   * Rounding: s is an fp32 sum of exact products of bf16 inputs, p is
+//     fp32 until it is rounded to bf16 for P.V, O is summed in fp32 and
+//     rounded to bf16 once, when stored.
+//   * k/v tiles of BS rows are staged as bf16 in a 2-stage ring of 16-byte
+//     cp.async.cg copies: the next tile loads while the current one
+//     multiplies, one barrier an iteration, copy addresses computed once a
+//     tile, rows past Sk zero-filled by the copy itself.  Rows are padded
+//     to KD + 8 elements so that the 8 rows of each ldmatrix 8x8 load hit
+//     distinct banks; columns from D up to the next multiple of 16 are
+//     zero, so D = 40, 80, ... take whole k-steps of 16.  A pointer or
+//     stride that is not 16-byte aligned, or D not a multiple of 8, takes
+//     plain 2-byte loads into the same layout.
+//   * The mask is applied per element only in the 16-row patches that a
+//     causal / window / prefix boundary or the ragged edge at Sk crosses.
+//     kv tiles that the causal or window mask hides from the whole q tile
+//     are skipped, and a warp skips the tiles that the causal mask hides
+//     from its 32 rows (a tile that `prefix` opens never is).  A row whose
+//     first visited tile is wholly masked accumulates values computed
+//     against the sentinel max, which the next tile's alpha = 2^(NEG2 - m)
+//     = 0 wipes out; columns past Sk are -inf and never count.  D == 128
+//     has its own instance with no column guards.
+//   * 4 warps, 128 q rows a block: each k/v tile read from L2 serves twice
+//     as many rows as 64-row blocks would.  At D = 128 a thread holds 128
+//     fp32 O accumulators and 64 score accumulators in 255 registers, 2
+//     blocks an SM (102 KB of shared memory each).  The grid runs batch x
+//     head fastest and the q tiles in reverse, so every head's longest
+//     causal tiles start first and the tail of the grid is short.  D > 128
+//     splits the output columns over blockIdx.z in blocks of 128, each
+//     recomputing the scores, so that the O accumulators fit.
+//   * mma.sync reaches only part of the card's tensor-core rate (PERF.md
+//     has the measured share); wgmma with TMA loads and warp
+//     specialisation are the next step.
+//
+// fp32 inputs (dtype 0, used by tests on the card) keep the first design,
+// scalar FMA on the CUDA cores with fp32 tiles in shared memory
+// (flash_fwd_kernel): TF32 tensor cores would not hold the fp32 limit of
+// 3e-4.
 //
 // q, k, v and out are read and written through their strides (the last
 // dimension must be contiguous), so the wrapper passes permuted views of
@@ -40,12 +79,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NTHREADS = 256;
 constexpr float NEG = -1e30f;
+constexpr float NEG2 = NEG * LOG2E;  // the mask sentinel in log2 units
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -60,20 +103,15 @@ struct Params {
   int B, H, G, S, Sk, D, ld;
   int causal, window, prefix;
   float scale;
+  int vec;  // bf16 path: every operand row 16-byte aligned, D % 8 == 0
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+__device__ __forceinline__ bool allowed(const Params& p, int qi, int ki) {
+  bool allow = true;
+  if (p.causal) allow = ki <= qi;
+  if (p.window) allow = allow && (qi - ki) < p.window;
+  if (p.prefix) allow = allow || ki < p.prefix;
+  return allow;
 }
 
 // Sum / max over the 16 threads of a half-warp (they share one row set).
@@ -90,8 +128,9 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
+// ------------------------------------------------ fp32: scalar CUDA cores
 // NC = output columns per thread (D <= 16 * NC).
-template <typename T, int NC>
+template <int NC>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Params p) {
   extern __shared__ float smem[];
   const int ld = p.ld;
@@ -111,15 +150,15 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Params p) {
   const int b = bh / (p.G * p.H);
   const int D = p.D;
 
-  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh +
-                g * p.q_sg;
-  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* qp = static_cast<const float*>(p.q) + b * p.q_sb +
+                    h * p.q_sh + g * p.q_sg;
+  const float* kp = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vp = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
 
   for (int e = tid; e < BQ * D; e += NTHREADS) {
     const int r = e / D, c = e - (e / D) * D;
     const int qi = q0 + r;
-    sQ[r * ld + c] = qi < p.S ? to_f32(qp[qi * p.q_ss + c]) : 0.f;
+    sQ[r * ld + c] = qi < p.S ? qp[qi * p.q_ss + c] : 0.f;
   }
 
   // kv range this q tile can see; wholly masked tiles are skipped.
@@ -144,8 +183,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Params p) {
       const int r = e / D, c = e - (e / D) * D;
       const int ki = k0 + r;
       const bool in = ki < p.Sk;
-      sK[r * ld + c] = in ? to_f32(kp[ki * p.k_ss + c]) : 0.f;
-      sV[r * ld + c] = in ? to_f32(vp[ki * p.v_ss + c]) : 0.f;
+      sK[r * ld + c] = in ? kp[ki * p.k_ss + c] : 0.f;
+      sV[r * ld + c] = in ? vp[ki * p.v_ss + c] : 0.f;
     }
     __syncthreads();
 
@@ -173,11 +212,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Params p) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int ki = k0 + tx + 16 * c;
-        bool allow = true;
-        if (p.causal) allow = ki <= qi;
-        if (p.window) allow = allow && (qi - ki) < p.window;
-        if (p.prefix) allow = allow || ki < p.prefix;
-        float val = allow ? s[r][c] * p.scale : NEG;
+        float val = allowed(p, qi, ki) ? s[r][c] * p.scale : NEG;
         if (ki >= p.Sk) val = -INFINITY;
         s[r][c] = val;
         mx = fmaxf(mx, val);
@@ -217,7 +252,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Params p) {
     }
   }
 
-  T* op = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + g * p.o_sg;
+  float* op = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + g * p.o_sg;
   float* lp = p.lse + (static_cast<int64_t>(b * p.H + h) * p.G + g) * p.S;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -227,31 +262,294 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Params p) {
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) {
       const int d = tx + 16 * cc;
-      if (d < D) op[qi * p.o_ss + d] = from_f32<T>(acc[r][cc] / lc);
+      if (d < D) op[qi * p.o_ss + d] = acc[r][cc] / lc;
     }
     if (tx == 0) lp[qi] = m[r] + logf(lc);
   }
 }
 
-template <typename T, int NC>
+// ------------------------------------------------- bf16: tensor cores
+// True when every (qi, ki) with qi in [qlo, qhi], ki in [klo, khi] is
+// allowed and ki < Sk, so that the patch needs no per-element mask (rows
+// past S are never stored; a patch opened only partly by `prefix` takes
+// the masked path).
+__device__ __forceinline__ bool all_open(const Params& p, int qlo, int qhi,
+                                         int klo, int khi) {
+  if (khi >= p.Sk) return false;
+  bool open = true;
+  if (p.causal) open = khi <= qlo;
+  if (p.window) open = open && (qhi - klo) < p.window;
+  if (p.prefix) open = open || khi < p.prefix;
+  return open;
+}
+
+// NW warps of 32 q rows (two m16 tiles each); k/v tiles of BS rows; output
+// columns [c0, c0 + DOUT) of D <= KD.  FULLD: D == KD == DOUT (no padded
+// or split columns).  8 / NW blocks an SM leave each thread 255 registers.
+template <int NW, int KD, int DOUT, int BS, bool FULLD>
+__global__ void __launch_bounds__(32 * NW, 8 / NW)
+    flash_fwd_tc_kernel(Params p) {
+  static_assert(!FULLD || DOUT == KD, "FULLD needs one column block");
+  constexpr int THREADS = 32 * NW, BQT = 32 * NW, LDS = KD + 8;
+  constexpr int NT = BS / 8, NO = DOUT / 8, KS = KD / 16;
+  constexpr int STAGE = 2 * BS * LDS;  // one ring stage: k then v
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(tc_smem);  // BQT x LDS
+  bf16* ring = sQ + BQT * LDS;                   // 2 stages
+
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int n_tiles = (p.S + BQT - 1) / BQT;
+  const int q0 = (n_tiles - 1 - static_cast<int>(blockIdx.y)) * BQT;
+  const int bh = blockIdx.x;
+  const int g = bh % p.G, h = (bh / p.G) % p.H, b = bh / (p.G * p.H);
+  const int c0 = FULLD ? 0 : blockIdx.z * DOUT;
+  const int D = FULLD ? KD : p.D, dpad = FULLD ? KD : (D + 15) & ~15;
+  const bool vec = p.vec != 0;
+
+  const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh +
+                   g * p.q_sg;
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+
+  // kv range this q tile can see; wholly masked tiles are skipped.
+  int hi = p.Sk;
+  if (p.causal) hi = min(p.Sk, max(q0 + BQT, p.prefix));
+  int lo = 0;
+  if (p.window > 0 && p.prefix == 0) lo = max(0, q0 - p.window + 1);
+  lo = (lo / BS) * BS;
+  const int n_kv = hi > lo ? (hi - lo + BS - 1) / BS : 0;
+
+  auto load_kv = [&](int k0, int st) {
+    load_tile_rows<THREADS, BS, KD, FULLD>(ring + st * STAGE, kp, p.k_ss, k0,
+                                           p.Sk, D, dpad, vec);
+    load_tile_rows<THREADS, BS, KD, FULLD>(ring + st * STAGE + BS * LDS, vp,
+                                           p.v_ss, k0, p.Sk, D, dpad, vec);
+  };
+  load_tile_rows<THREADS, BQT, KD, FULLD>(sQ, qp, p.q_ss, q0, p.S, D, dpad,
+                                          vec);
+  if (n_kv > 0) load_kv(lo, 0);
+  cp_async_commit();
+
+  // this warp's rows qw + 16 mt + g8 (+ 8); m in log2 units, l this
+  // lane's part of the row sum
+  const int qw = q0 + 32 * w;
+  const bf16* aQ = sQ + (32 * w + a_row(lane)) * LDS + a_col(lane);
+  const float c2 = p.scale * LOG2E;
+  float m2[2][2], l[2][2], o[2][NO][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    m2[mt][0] = m2[mt][1] = NEG2;
+    l[mt][0] = l[mt][1] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][n][e] = 0.f;
+  }
+
+  for (int it = 0; it < n_kv; ++it) {
+    const int k0 = lo + it * BS;
+    const bf16* cK = ring + (it & 1) * STAGE;
+    const bf16* cV = cK + BS * LDS;
+    // tile `it` (and at it == 0 the q tile) has landed, and every warp is
+    // done with tile it - 1, whose stage the next tile now fills while
+    // this one multiplies
+    cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < n_kv) load_kv(k0 + BS, (it + 1) & 1);
+    cp_async_commit();
+    // a tile that the causal mask hides from all 32 rows of this warp
+    if (p.causal && k0 > qw + 31 && !(p.prefix > 0 && k0 < p.prefix))
+      continue;
+
+    // s = q.k^T for this warp's 2 x 16 rows x BS columns; each k fragment
+    // feeds both m tiles
+    float s[2][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      if (FULLD || ks * 16 < dpad) {
+        uint32_t aq[2][4];
+        ldsm_x4(smem_addr(aQ + 16 * ks), aq[0]);
+        ldsm_x4(smem_addr(aQ + 16 * LDS + 16 * ks), aq[1]);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bk[4];
+          ldsm_x4(smem_addr(cK + (16 * np + b_row(lane)) * LDS + 16 * ks +
+                            b_col(lane)), bk);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_bf16(s[mt][2 * np], aq[mt], bk[0], bk[1]);
+            mma_bf16(s[mt][2 * np + 1], aq[mt], bk[2], bk[3]);
+          }
+        }
+      }
+    }
+
+    uint32_t ap[2][NT / 2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      // the row max; the per-element mask only where this 16 x BS patch
+      // needs it, and there s becomes s * c2 or a sentinel, in log2 units
+      // like m, so that p = 2^(s * a - m) with a = c2 or 1
+      const int qm = qw + 16 * mt, qr = qm + g8;
+      const bool open = all_open(p, qm, qm + 15, k0, k0 + BS - 1);
+      const float a = open ? c2 : 1.f;
+      if (!open) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = qr + (e >> 1) * 8;
+            const int ki = k0 + 8 * j + 2 * t4 + (e & 1);
+            s[mt][j][e] = ki >= p.Sk ? -INFINITY
+                          : allowed(p, qi, ki) ? s[mt][j][e] * c2 : NEG2;
+          }
+      }
+      float mx[2] = {NEG2, NEG2}, alpha[2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[mt][j][e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m2[mt][r], mx[r] * a);  // a > 0
+        alpha[r] = exp2_approx(m2[mt][r] - m_new);
+        m2[mt][r] = m_new;
+      }
+
+      // p in fp32, one FFMA and one MUFU.EX2; l from it before rounding
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pv =
+              exp2_approx(fmaf(s[mt][j][e], a, -m2[mt][e >> 1]));
+          s[mt][j][e] = pv;
+          rs[e >> 1] += pv;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[mt][r] = l[mt][r] * alpha[r] + rs[r];
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[mt][n][e] *= alpha[e >> 1];
+      to_a_frags<NT>(s[mt], ap[mt]);
+    }
+
+    // o += p.v, v read across its rows (.trans); each v fragment feeds
+    // both m tiles
+#pragma unroll
+    for (int t = 0; t < NT / 2; ++t)
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        if (FULLD || c0 + 16 * np < D) {
+          uint32_t bv[4];
+          ldsm_x4_t(smem_addr(cV + (16 * t + a_row(lane)) * LDS + c0 +
+                              16 * np + a_col(lane)), bv);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_bf16(o[mt][2 * np], ap[mt][t], bv[0], bv[1]);
+            mma_bf16(o[mt][2 * np + 1], ap[mt][t], bv[2], bv[3]);
+          }
+        }
+      }
+  }
+  cp_async_wait_all();
+
+  bf16* op = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh + g * p.o_sg;
+  float* lp = p.lse + (static_cast<int64_t>(b * p.H + h) * p.G + g) * p.S;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[mt][r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const float lc = fmaxf(lr, 1e-30f), inv = 1.f / lc;
+      const int qi = qw + 16 * mt + g8 + 8 * r;
+      if (qi >= p.S) continue;
+      bf16* orow = op + qi * p.o_ss;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const int d = c0 + 8 * n + 2 * t4;
+        const float x0 = o[mt][n][2 * r] * inv;
+        const float x1 = o[mt][n][2 * r + 1] * inv;
+        if (vec) {
+          if (FULLD || d < D)
+            *reinterpret_cast<uint32_t*>(orow + d) = pack_bf16(x0, x1);
+        } else {
+          if (FULLD || d < D) orow[d] = __float2bfloat16(x0);
+          if (FULLD || d + 1 < D) orow[d + 1] = __float2bfloat16(x1);
+        }
+      }
+      if (t4 == 0 && (FULLD || blockIdx.z == 0))
+        lp[qi] = m2[mt][r] * LN2 + logf(lc);
+    }
+}
+
+template <int NW, int KD, int DOUT, int BS, bool FULLD>
+cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
+  // the q tile, then the ring's 2 stages of k and v tiles
+  constexpr int BQT = 32 * NW;
+  const size_t smem =
+      static_cast<size_t>(BQT + 4 * BS) * (KD + 8) * sizeof(bf16);
+  auto kernel = flash_fwd_tc_kernel<NW, KD, DOUT, BS, FULLD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  // batch x head fastest, q tiles reversed: every head's longest causal
+  // tiles start first, so the tail of the grid is short
+  const dim3 grid(p.B * p.H * p.G, (p.S + BQT - 1) / BQT,
+                  (p.D + DOUT - 1) / DOUT);
+  kernel<<<grid, 32 * NW, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Every D takes 4 warps (32 q rows each).  D == 128 (the models' head dim)
+// takes the instance without column guards, against 64-row kv tiles: 2
+// blocks an SM (255 registers, 102 KB).  Other D take 64-row tiles, or
+// 32-row tiles for D > 128, whose output columns are split over two
+// blocks.
+cudaError_t launch_tc_for_d(const Params& p, cudaStream_t stream) {
+  if (p.D == 128) return launch_tc<4, 128, 128, 64, true>(p, stream);
+  if (p.D <= 64) return launch_tc<4, 64, 64, 64, false>(p, stream);
+  if (p.D <= 128) return launch_tc<4, 128, 128, 64, false>(p, stream);
+  return launch_tc<4, 256, 128, 32, false>(p, stream);
+}
+
+template <int NC>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const size_t smem =
       (static_cast<size_t>(BQ + 2 * BK) * p.ld + BQ * (BK + 1)) *
       sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.S + BQ - 1) / BQ, p.B * p.H * p.G);
-  flash_fwd_kernel<T, NC><<<grid, NTHREADS, smem, stream>>>(p);
+  flash_fwd_kernel<NC><<<grid, NTHREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch_for_d(const Params& p, cudaStream_t stream) {
-  if (p.D <= 64) return launch<T, 4>(p, stream);
-  if (p.D <= 128) return launch<T, 8>(p, stream);
-  return launch<T, 16>(p, stream);
+  if (p.D <= 64) return launch<4>(p, stream);
+  if (p.D <= 128) return launch<8>(p, stream);
+  return launch<16>(p, stream);
 }
 
 }  // namespace
@@ -259,7 +557,8 @@ cudaError_t launch_for_d(const Params& p, cudaStream_t stream) {
 // dims: B, H (= n_kv), G, S, Sk, D.
 // strides (in elements): q b,h,g,s; k b,h,s; v b,h,s; out b,h,g,s.  The last
 // dimension of each is contiguous.  lse is a contiguous (B, H, G, S) fp32.
-// dtype: 0 float32, 1 bfloat16.  Returns a cudaError_t.
+// dtype: 0 float32, 1 bfloat16; bfloat16 takes only a positive scale (its
+// running max is taken over the unscaled scores).  Returns a cudaError_t.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, const int64_t* dims,
                          const int64_t* strides, int dtype, int causal,
@@ -287,13 +586,20 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   p.window = window;
   p.prefix = prefix;
   p.scale = scale;
+  p.vec = p.D % 8 == 0;
+  const void* operands[] = {q, k, v, out};
+  for (const void* ptr : operands)
+    p.vec = p.vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  for (int i = 0; i < 14; ++i) p.vec = p.vec && strides[i] % 8 == 0;
   if (p.D < 1 || p.D > 256 || p.S < 1 || p.Sk < 1 ||
       static_cast<int64_t>(p.B) * p.H * p.G > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return static_cast<int>(launch_for_d<float>(p, st));
-    case 1: return static_cast<int>(launch_for_d<__nv_bfloat16>(p, st));
+    case 0: return static_cast<int>(launch_for_d(p, st));
+    case 1:
+      if (!(scale > 0.f)) return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(launch_tc_for_d(p, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

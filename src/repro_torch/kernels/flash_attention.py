@@ -4,12 +4,12 @@ their plain twins.
 ``flash_fwd`` and ``flash_bwd`` are the counterparts of the JAX package's
 ``flash_fwd_pallas`` and ``flash_bwd_pallas`` (kernels/flash_attention.py)
 with the same 5-D layout.  On a CUDA tensor each launches its kernels
-(``csrc/flash_fwd.cu``; ``csrc/flash_bwd.cu``, a dq pass and a dk/dv pass)
-or raises; on a CPU tensor each computes its plain twin
-(``flash_fwd_reference``, ``flash_bwd_reference``), which ``chip_smoke.py``
-also uses as the on-card oracle.  ``LAUNCHES`` (forward),
-``BWD_DQ_LAUNCHES`` and ``BWD_DKV_LAUNCHES`` count kernel launches and
-nothing else.
+(``csrc/flash_fwd.cu``; ``csrc/flash_bwd.cu``, a dq pass and a dk/dv pass;
+bf16 on the tensor cores, fp32 on the CUDA cores) or raises; on a CPU
+tensor each computes its plain twin (``flash_fwd_reference``,
+``flash_bwd_reference``), which ``chip_smoke.py`` also uses as the
+on-card oracle.  ``LAUNCHES`` (forward), ``BWD_DQ_LAUNCHES`` and
+``BWD_DKV_LAUNCHES`` count kernel launches and nothing else.
 """
 from __future__ import annotations
 
@@ -115,7 +115,8 @@ def _check_cuda(*ts):
 def flash_fwd(q, k, v, *, causal=True, window=0, prefix=0, scale=None):
     """q: (B, n_kv, G, S, D); k, v: (B, n_kv, Sk, D), any strides with a
     contiguous last dimension.  Returns (out (B, n_kv, G, S, D) in q's
-    dtype, lse (B, n_kv, G, S) fp32).  ``scale`` defaults to 1/sqrt(D)."""
+    dtype, lse (B, n_kv, G, S) fp32).  ``scale`` defaults to 1/sqrt(D); on
+    the card, bf16 inputs take only a positive scale."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, causal=causal, window=window,
@@ -123,6 +124,10 @@ def flash_fwd(q, k, v, *, causal=True, window=0, prefix=0, scale=None):
     _check_cuda(q, k, v)
     B, H, G, S, D = q.shape
     Sk = k.shape[2]
+    scale = float(scale if scale else 1.0 / math.sqrt(D))
+    if q.dtype == torch.bfloat16 and scale < 0:
+        raise ValueError(f"flash_fwd's bf16 kernel takes a positive scale, "
+                         f"not {scale}")
     # out lives in (B, S, n_kv, G, D) memory, so the model's (B, S, Hq, D)
     # view of it is free.
     out = torch.empty((B, S, H, G, D), dtype=q.dtype,
@@ -136,8 +141,7 @@ def flash_fwd(q, k, v, *, causal=True, window=0, prefix=0, scale=None):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), dims, strides, _DTYPE_CODES[q.dtype],
-                 int(causal), int(window), int(prefix),
-                 float(scale if scale else 1.0 / math.sqrt(D)), stream)
+                 int(causal), int(window), int(prefix), scale, stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
     global LAUNCHES

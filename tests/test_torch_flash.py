@@ -112,6 +112,72 @@ def test_flash_fwd_bf16_plain_version_matches_fp32():
     np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), **TOL)
 
 
+# bf16 limits of chip_smoke.py for the forward kernel against its twin:
+# out 1e-2, lse 1e-3, and 1e-2 for each of 8 row blocks' relative norm
+# error.
+BF16_TOL = dict(out=1e-2, lse=1e-3, block=1e-2)
+
+
+def _bf16(x):
+    return torch.as_tensor(np.asarray(x)).to(torch.bfloat16).float()
+
+
+def _fwd_tensor_core_roundings(q, k, v, causal, window, prefix, bk=64):
+    """The bf16 forward kernel's arithmetic (csrc/flash_fwd.cu,
+    flash_fwd_tc_kernel): s as fp32 sums of exact products of bf16 inputs,
+    the online softmax over kv tiles of ``bk`` columns in fp32, p rounded
+    to bf16 as the operand of P.V, l summed from the fp32 p, fp32 sums,
+    and ``out`` rounded to bf16 once."""
+    S, Sk, D = q.shape[3], k.shape[2], q.shape[4]
+    allow = fa._allow(S, Sk, causal, window, prefix, "cpu")
+    s = torch.einsum("bhgqd,bhkd->bhgqk", q, k) / np.sqrt(D)
+    s = s.masked_fill(~allow, fa.NEG)
+    m = torch.full(s.shape[:-1], fa.NEG)
+    l = torch.zeros(s.shape[:-1])
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, Sk, bk):
+        st = s[..., k0:k0 + bk]
+        m_new = torch.maximum(m, st.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bhkd->bhgqd", _bf16(p), v[:, :, k0:k0 + bk])
+        m = m_new
+    l = torch.clamp(l, min=1e-30)
+    return _bf16(acc / l[..., None]), m + torch.log(l)
+
+
+@pytest.mark.parametrize("case", CASES + [
+    (1, 80, 4, 2, 128, True, 0, 0),     # S not a multiple of 64-row tiles
+    (1, 144, 4, 1, 128, True, 48, 0),   # ragged S with a window
+    (2, 64, 4, 2, 40, True, 0, 0),      # D zero-padded to 48 in the kernel
+])
+def test_bf16_tensor_core_roundings_match_pallas_kernel(case):
+    """The rounding points of the bf16 tensor-core forward kernel, emulated
+    on the CPU, against the JAX ``flash_fwd_pallas`` (interpret mode, fp32)
+    on the same bf16-rounded inputs, under chip_smoke.py's bf16 limits."""
+    B, S, Hq, n_kv, D, causal, window, prefix = case
+    q5, k4, v4 = (_bf16(a).numpy()
+                  for a in _five_d(*_mk(case, seed=S + 3 * D), n_kv))
+    mask = dict(causal=causal, window=window, prefix=prefix)
+    want_out, want_lse = flash_fwd_pallas(
+        jnp.asarray(q5), jnp.asarray(k4), jnp.asarray(v4), bq=16, bk=16,
+        interpret=True, **mask)
+    out, lse = _fwd_tensor_core_roundings(
+        *(torch.from_numpy(a) for a in (q5, k4, v4)), **mask)
+    want_out = torch.tensor(np.asarray(want_out))
+    want_lse = torch.tensor(np.asarray(want_lse))
+    torch.testing.assert_close(out, want_out, rtol=BF16_TOL["out"],
+                               atol=BF16_TOL["out"])
+    torch.testing.assert_close(lse, want_lse, rtol=BF16_TOL["lse"],
+                               atol=BF16_TOL["lse"])
+    for i, (gb, wb) in enumerate(zip(torch.tensor_split(out, 8, -2),
+                                     torch.tensor_split(want_out, 8, -2))):
+        rel = float((gb - wb).norm() / wb.norm())
+        assert rel <= BF16_TOL["block"], (i, rel)
+
+
 @pytest.mark.parametrize("bad", ["rank", "shape", "dtype", "half",
                                  "head_dim", "device"])
 def test_flash_fwd_rejects_what_the_kernel_does_not_take(bad):

@@ -29,9 +29,13 @@ CASES = [
     (2, 200, 8, 2, 128, True, 0, 0),     # S not a multiple of the tiles
     (8, 256, 16, 16, 64, True, 0, 0),    # 512 blocks a pass: > 2 x 132 SMs
     (1, 70, 4, 2, 36, True, 0, 0),       # D % 8 != 0: 2-byte loads, no cp.async
+    (1, 257, 4, 2, 256, False, 64, 0),   # widest D, window without causal
+    (1, 300, 4, 1, 96, True, 50, 20),    # window and prefix together
 ]
-# fp32: the reference tests' 3e-4.  bf16: fp32 inside, `out` rounded once
-# to bf16 (2^-8 relative).
+# fp32: the reference tests' 3e-4 (the scalar fp32 kernel).  bf16: the
+# tensor-core kernel sums exact products of the bf16 inputs in fp32, rounds
+# p to bf16 once as the operand of P.V and `out` once when stored (each at
+# most 2^-9 relative).
 TOL = {torch.float32: 3e-4, torch.bfloat16: 1e-2}
 # Gradients.  fp32: the reference tests' 4e-3 (the fp32 kernels multiply
 # in fp32 on the CUDA cores).  bf16: the tensor-core kernels sum the
@@ -85,6 +89,66 @@ def test_flash_fwd_kernel_matches_plain_version(cuda, case, dtype):
     torch.testing.assert_close(out.float(), ref_out, rtol=tol, atol=tol)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-3, atol=1e-3)
     _assert_row_blocks_close(out, ref_out, dtype, "out")
+
+
+@pytest.mark.parametrize("view", ["q_offset", "k_offset", "v_offset",
+                                  "kv_row_pitch"])
+def test_flash_fwd_bf16_unaligned_views_match_plain_version(cuda, view):
+    """Views that are not 16-byte aligned (a data pointer 2 bytes past a
+    16-byte boundary, or k/v rows 132 elements apart) take the kernel's
+    2-byte loads at D == 128, the instance with no column guards."""
+    B, S, Hq, n_kv, D = 2, 200, 8, 2, 128
+    gen = torch.Generator(device=cuda).manual_seed(5)
+
+    def make(shape, name):
+        if view == f"{name}_offset":
+            n = shape[0] * shape[1] * shape[2] * shape[3]
+            buf = torch.randn(n + 1, generator=gen, device=cuda)
+            return buf.to(torch.bfloat16)[1:].view(shape)
+        if view == "kv_row_pitch" and name in ("k", "v"):
+            wide = torch.randn((*shape[:3], D + 4), generator=gen,
+                               device=cuda)
+            return wide.to(torch.bfloat16)[..., :D]
+        return torch.randn(shape, generator=gen, device=cuda) \
+            .to(torch.bfloat16)
+
+    q = make((B, S, Hq, D), "q")
+    k = make((B, S, n_kv, D), "k")
+    v = make((B, S, n_kv, D), "v")
+    q5 = q.reshape(B, S, n_kv, Hq // n_kv, D).permute(0, 2, 3, 1, 4)
+    k4, v4 = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    assert any(t.data_ptr() % 16 or any(st % 8 for st in t.stride())
+               for t in (q5, k4, v4))
+    before = fa.LAUNCHES
+    out, lse = fa.flash_fwd(q5, k4, v4, causal=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    ref_out, ref_lse = fa.flash_fwd_reference(q5.float(), k4.float(),
+                                              v4.float(), causal=True)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref_out, rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-3, atol=1e-3)
+    _assert_row_blocks_close(out, ref_out, torch.bfloat16, "out")
+
+
+def test_flash_fwd_kernel_refuses_a_negative_scale(cuda):
+    q = torch.randn((1, 1, 1, 8, 64), device=cuda).to(torch.bfloat16)
+    k = torch.randn((1, 1, 8, 64), device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="positive scale"):
+        fa.flash_fwd(q, k, k, scale=-0.125)
+
+
+def test_flash_fwd_fp32_kernel_takes_a_negative_scale(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((1, 2, 2, 40, 64), device=cuda, generator=g)
+    k = torch.randn((1, 2, 40, 64), device=cuda, generator=g)
+    v = torch.randn((1, 2, 40, 64), device=cuda, generator=g)
+    out, lse = fa.flash_fwd(q, k, v, causal=True, scale=-0.125)
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, causal=True,
+                                              scale=-0.125)
+    tol = TOL[torch.float32]
+    torch.testing.assert_close(out, ref_out, rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=tol, atol=tol)
 
 
 def test_flash_fwd_kernel_refuses_a_strided_last_dim(cuda):
