@@ -27,6 +27,16 @@ Phases, each fatal on failure:
    and read just after, and the kernel must have run once per layer;
    check the outputs (finite logits, kernel path vs the plain blockwise
    path, decode at position S vs a prefill of S+1 tokens);
+   then offload a session's KV cache through the store and bring it back:
+   a full-width, full-depth prefill of the same prompts (its 2.08 GB bf16
+   cache), ``ServeScheduler.offload`` over a ``KVCacheStore`` bound to the
+   card (checksums by the kernel on the card), a routed hot restore
+   (multipart, verified by the kernel on the card) and a 64 KiB decode
+   window of each leaf; check the restored cache and the window bit for
+   bit against a copy kept on the card, 8 greedy decode steps from each,
+   exact launch counts (2 checksums an offload, 2 a restore), no host
+   checksum of a leaf, and the manifest checksums against
+   ``integrity.checksum`` of the host bytes;
 4. drive the training slice: deepseek-7b at full width and depth with
    Adafactor, int8 gradient compression, ``flash_pallas`` and remat, one
    micro-batch of B=2 x 4096 tokens; hold the kernel path's loss, grad
@@ -144,6 +154,12 @@ HIDDEN_REL_TOL = 2e-2
 # prefill of S+1 tokens (kernel): different summation orders and roundings
 # in bf16 over 30 layers.
 DECODE_REL_TOL = 5e-2
+# The KV-cache offload: a session of 4 decode nodes, greedy decode steps
+# from the restored cache, and the decode window read from each leaf's
+# tail on the routed node.
+OFFLOAD_NODES = 4
+OFFLOAD_DECODE_STEPS = 8
+OFFLOAD_WINDOW = 64 << 10
 # The storage kernels are integer functions and are held bit for bit.
 # Checksum cases (bytes): empty, 1-7, each residue mod 4, a 1 MiB + 7
 # buffer; then a 4-byte but not 16-byte aligned view, deepseek-7b's
@@ -312,6 +328,21 @@ def phase_kernels() -> float:
                      f"{dtype}")
             if case == KERNEL_CASES[-1] and dtype == torch.bfloat16:
                 slice_err = r["max_abs_err_out"]
+    # a negative scale at the serving shape: the bf16 kernel runs it on a
+    # negated q tile with |scale|
+    case = KERNEL_CASES[-1]
+    scale = -1.0 / math.sqrt(case[4])
+    _, (q5, k4, v4) = make_qkv(case, torch.bfloat16, gen)
+    out, lse = fa.flash_fwd(q5, k4, v4, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_fwd_reference(
+        q5.float(), k4.float(), v4.float(), causal=True, scale=scale)
+    r = check_fwd(out, lse, ref_out, ref_lse, torch.bfloat16)
+    print(json.dumps({"kernel": "flash_fwd", "case": case, "scale": scale,
+                      "dtype": str(torch.bfloat16), **r}))
+    if not r["ok"]:
+        fail(f"flash_fwd with a negative scale disagrees with its plain "
+             f"version: {case}")
     return slice_err
 
 
@@ -597,6 +628,154 @@ def phase_slice() -> dict:
             "decode_vs_prefill_argmax_agree": argmax_agree}
 
 
+def phase_serve_offload() -> dict:
+    """A session's KV cache offloaded to the store and restored onto the
+    card, through the port's entry points: the serving slice's prefill at
+    full width and depth, ``ServeScheduler.offload`` over a
+    ``KVCacheStore`` bound to the card, a routed hot restore, a decode
+    window, and decode from the restored cache against decode from a copy
+    kept on the card."""
+    import torch
+    from repro_torch.ckpt import serializer as S
+    from repro_torch.configs import get_arch
+    from repro_torch.core import Pool, Topology, bandwidth, integrity
+    from repro_torch.core.interfaces import DFS
+    from repro_torch.kernels.checksum import byte_view
+    from repro_torch.models import init_model
+    from repro_torch.serve import (KVCacheStore, ServeScheduler,
+                                   make_decode_step, make_prefill_step)
+
+    cfg = dataclasses.replace(get_arch(SLICE_ARCH), attn_impl="flash_pallas")
+    B, S_ = SLICE_BATCH, SLICE_PROMPT
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_model(gen, cfg, device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (B, S_), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    prefill = make_prefill_step(cfg, pad_to=S_ + SLICE_PAD, device="cuda")
+    decode = make_decode_step(cfg, device="cuda")
+    launches = {}
+    _zero_counters()
+    logits, cache = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    launches["prefill"] = _counters()
+    tok0 = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    # decode writes a cache in place: the copy the restore is held against
+    clone = {k: v.clone() for k, v in cache.items()}
+    leaf_shape = list(cache["k"].shape)     # (layers, B, slots, n_kv, D)
+    leaf_nbytes = {f"/{k}": v.numel() * v.element_size()
+                   for k, v in cache.items()}
+    nbytes = sum(leaf_nbytes.values())
+
+    pool = Pool(Topology())
+    dfs = DFS(pool.create_container("serve", oclass="S2"))
+    store = KVCacheStore(dfs, "dfs", device="cuda")
+    sched = ServeScheduler(store, nodes=range(OFFLOAD_NODES),
+                           quota_bytes=2 * nbytes)
+    # host checksums of a whole leaf's bytes (the store's engines checksum
+    # their own records, which are far smaller)
+    host_csums = []
+    checksum = integrity.checksum
+
+    def counting_checksum(data):
+        n = data.nbytes if hasattr(data, "nbytes") else len(data)
+        if n in leaf_nbytes.values():
+            host_csums.append(n)
+        return checksum(data)
+
+    integrity.checksum = counting_checksum
+    try:
+        host0 = _host_gb()
+        _zero_counters()
+        t0 = time.perf_counter()
+        with pool.sim.phase() as wph:
+            evicted = sched.offload("sess0", cache, step=S_)
+        offload_s = time.perf_counter() - t0
+        rss = {"before": host0["rss_gb"], "after_offload": _rss_gb()}
+        launches["offload"] = _counters()
+        del cache
+        _zero_counters()
+        t0 = time.perf_counter()
+        node = sched.begin("sess0")
+        with pool.sim.phase() as rph:
+            restored = store.restore("sess0")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        rss["after_restore"] = _rss_gb()
+        sched.end("sess0", node)
+        launches["restore"] = _counters()
+        lo = {p: max(0, n - OFFLOAD_WINDOW) for p, n in leaf_nbytes.items()}
+        window = store.restore_window("sess0", min(lo.values()),
+                                      max(leaf_nbytes.values()),
+                                      client_node=node)
+        host1 = _host_gb()
+    finally:
+        integrity.checksum = checksum
+    off_t, res_t = store.timings
+
+    restored_equal = sorted(restored) == sorted(clone) and all(
+        torch.equal(byte_view(restored[k]), byte_view(clone[k]))
+        and restored[k].device.type == "cuda" and
+        restored[k].dtype == clone[k].dtype and
+        restored[k].shape == clone[k].shape for k in clone)
+    window_equal = sorted(window) == sorted(leaf_nbytes) and all(
+        bytes(window[p]) == bytes(byte_view(clone[p[1:]])[lo[p]:]
+                                  .cpu().numpy())
+        for p in leaf_nbytes)
+    # after the timed window: each manifest checksum (the kernel's, on the
+    # card) against integrity.checksum of the host bytes
+    man = store.manifest("sess0")["leaves"]
+    csum_equal = sorted(man) == sorted(leaf_nbytes) and all(
+        man[f"/{k}"]["csum"] == integrity.checksum(S.leaf_to_bytes(v)[0])
+        for k, v in clone.items())
+    # greedy decode from each (in place, so last)
+    tokens = {}
+    for name, c in (("restored", restored), ("clone", clone)):
+        tok, out = tok0, []
+        for t in range(OFFLOAD_DECODE_STEPS):
+            tok, _, c = decode(params, c, tok, S_ + t)
+            out.append(tok)
+        tokens[name] = torch.cat(out, dim=1)
+    decode_equal = torch.equal(tokens["restored"], tokens["clone"])
+    del restored, clone, params
+    torch.cuda.empty_cache()
+
+    want = {"prefill": {k: 0 for k in launches["prefill"]}}
+    want["prefill"]["flash_fwd"] = cfg.n_layers
+    want["offload"] = {k: 0 for k in launches["offload"]}
+    want["offload"]["checksum"] = len(leaf_nbytes)
+    want["restore"] = dict(want["offload"])
+    r = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
+         "batch": B, "prompt": S_, "pad_to": S_ + SLICE_PAD,
+         "leaf_shape": leaf_shape,
+         "leaf_bytes": leaf_nbytes, "session_bytes": nbytes,
+         "nodes": OFFLOAD_NODES, "routed_node": node, "evicted": evicted,
+         "offload_s": offload_s, "offload_split": {
+             k: off_t[k] for k in ("checksum_s", "to_host_s", "store_s")},
+         "restore_s": restore_s, "restore_split": {
+             k: res_t[k] for k in ("read_s", "to_device_s", "checksum_s")},
+         "offload_modeled_s": wph.elapsed, "restore_modeled_s": rph.elapsed,
+         "offload_modeled_gib_per_s": bandwidth(nbytes, wph.elapsed),
+         "restore_modeled_gib_per_s": bandwidth(nbytes, rph.elapsed),
+         "rss_gb": rss, "peak_rss_gb_before": host0["peak_rss_gb"],
+         "peak_rss_gb_after": host1["peak_rss_gb"],
+         "host_free_after": host1["free_g"],
+         "launches": launches, "want_launches": want,
+         "host_leaf_checksums": len(host_csums),
+         "restored_equal": restored_equal, "window_equal": window_equal,
+         "decode_equal": decode_equal,
+         "decoded": tokens["restored"].tolist(),
+         "manifest_csum_equal": csum_equal}
+    if launches != want:
+        fail(f"offload path launches {launches}, want {want}")
+    if host_csums:
+        fail(f"host checksums of offloaded leaves: {host_csums}")
+    if not (restored_equal and window_equal and decode_equal and csum_equal):
+        fail(f"KV-cache offload round trip: restored {restored_equal}, "
+             f"window {window_equal}, decode {decode_equal}, manifest "
+             f"checksums {csum_equal}")
+    return r
+
+
 def _counters():
     from repro_torch.kernels import checksum as ck
     from repro_torch.kernels import flash_attention as fa
@@ -619,11 +798,19 @@ def _zero_counters() -> None:
     ck.CHECKSUM_LAUNCHES = sp.PACK_LAUNCHES = sp.UNPACK_LAUNCHES = 0
 
 
+def _rss_gb() -> float:
+    """This process's resident host memory now, GB."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
 def _host_gb() -> dict:
     import resource
     out = subprocess.run(["free", "-g"], capture_output=True, text=True,
                          timeout=60).stdout
-    return {"free_g": out.strip().splitlines(),
+    return {"free_g": out.strip().splitlines(), "rss_gb": _rss_gb(),
             "peak_rss_gb": resource.getrusage(
                 resource.RUSAGE_SELF).ru_maxrss / 1e6}
 
@@ -1158,6 +1345,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     slice_run = phase_slice()
     print(json.dumps({"slice": slice_run, "card": card}))
+    offload_run = phase_serve_offload()
+    print(json.dumps({"serve_offload": offload_run, "card": card}))
     train_run = phase_train()
     print(json.dumps({"train": train_run, "card": card}))
     ckpt_run = phase_ckpt_train()
@@ -1183,7 +1372,8 @@ def main() -> int:
     record = {"kernels": [{
         "name": "flash_fwd", "route": "cuda", "source": csrc + "flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:92",
-        "launches": slice_run["flash_fwd_launches"] + tl["flash_fwd"],
+        "launches": slice_run["flash_fwd_launches"] + tl["flash_fwd"]
+        + sum(n["flash_fwd"] for n in offload_run["launches"].values()),
         "max_abs_err": max(slice_err, fwd_train_err), "ms": times["ms"],
         "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"], "library_ms": times["library_ms"],
@@ -1221,7 +1411,8 @@ def main() -> int:
         "library_ms": dt["library_ms"]}, {
         "name": "checksum", "route": "cuda", "source": csrc + "checksum.cu",
         "replaces": "src/repro/kernels/checksum.py:44",
-        "launches": ckpt_run["launches"]["checksum"],
+        "launches": ckpt_run["launches"]["checksum"]
+        + sum(n["checksum"] for n in offload_run["launches"].values()),
         "max_abs_err": storage_err["checksum"],
         "ms": st["checksum"]["ms"], "plain_ms": st["checksum"]["plain_ms"],
         "bound_ms": st["checksum"]["bound_ms"],

@@ -155,18 +155,6 @@ class Checkpointer:
                 or getattr(self.iface, "tier_aware", False))
 
     # ------------- save -------------
-    @staticmethod
-    def _card_checksum(leaf) -> int | None:
-        """The checksum a leaf carries into the save: a snapshot's own, a
-        CUDA tensor's from the kernel (computed here, on the calling
-        thread), else None (host bytes are checksummed as they are
-        written)."""
-        if isinstance(leaf, S.HostLeaf):
-            return leaf.csum
-        if isinstance(leaf, torch.Tensor) and leaf.device.type == "cuda":
-            return S.checksum_leaf(leaf)
-        return None
-
     def save(self, step: int, tree, extra_meta: dict | None = None) -> dict:
         """Blocking transactional save. Returns the manifest dict."""
         cont = self.dfs.cont
@@ -178,7 +166,7 @@ class Checkpointer:
         t0 = time.perf_counter()
         # (path, leaf, checksum or None): every CUDA leaf's checksum is
         # taken before the serialisation chain moves any byte off the card
-        leaves = [(path, leaf, self._card_checksum(leaf))
+        leaves = [(path, leaf, S.card_checksum(leaf))
                   for path, leaf in S.flatten_tree(tree)]
         t1 = time.perf_counter()
         entries: dict = {}
@@ -279,7 +267,7 @@ class Checkpointer:
         checksum again."""
         t0 = time.perf_counter()
         flat = S.flatten_tree(tree)
-        csums = [self._card_checksum(v) for _, v in flat]
+        csums = [S.card_checksum(v) for _, v in flat]
         t1 = time.perf_counter()
         snapshot = [(p, S.HostLeaf(*S.leaf_to_bytes(v, copy=True), csum=c))
                     for (p, v), c in zip(flat, csums)]

@@ -129,6 +129,18 @@ def checksum_leaf(leaf) -> int:
     return integrity.checksum(leaf)
 
 
+def card_checksum(leaf) -> int | None:
+    """The checksum a leaf carries into a save or an offload: a snapshot's
+    own, a CUDA tensor's from the kernel (computed on the calling thread,
+    before any byte leaves the card), else None (host bytes are
+    checksummed as they are written)."""
+    if isinstance(leaf, HostLeaf):
+        return leaf.csum
+    if isinstance(leaf, torch.Tensor) and leaf.device.type == "cuda":
+        return checksum_leaf(leaf)
+    return None
+
+
 def shard_ranges(nbytes: int, n_shards: int) -> list[tuple[int, int]]:
     """Split a leaf's byte range across writer processes (hosts)."""
     per = -(-nbytes // max(1, n_shards))

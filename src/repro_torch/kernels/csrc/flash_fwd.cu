@@ -103,7 +103,8 @@ struct Params {
   int B, H, G, S, Sk, D, ld;
   int causal, window, prefix;
   float scale;
-  int vec;  // bf16 path: every operand row 16-byte aligned, D % 8 == 0
+  int vec;   // bf16 path: every operand row 16-byte aligned, D % 8 == 0
+  int negq;  // bf16 path: the caller's scale was negative (see below)
 };
 
 __device__ __forceinline__ bool allowed(const Params& p, int qi, int ki) {
@@ -330,6 +331,17 @@ __global__ void __launch_bounds__(32 * NW, 8 / NW)
                                           vec);
   if (n_kv > 0) load_kv(lo, 0);
   cp_async_commit();
+  if (p.negq) {
+    // A negative scale runs as (-q).k.|scale| = q.k.scale: the row max
+    // below is taken over unscaled scores and needs a positive scale.
+    // bf16 negation is exact.  The loop's first barrier publishes the
+    // flipped tile before any warp reads it.
+    cp_async_wait_all();
+    __syncthreads();
+    uint32_t* q32 = reinterpret_cast<uint32_t*>(sQ);
+    for (int e = threadIdx.x; e < BQT * LDS / 2; e += THREADS)
+      q32[e] ^= 0x80008000u;
+  }
 
   // this warp's rows qw + 16 mt + g8 (+ 8); m in log2 units, l this
   // lane's part of the row sum
@@ -557,8 +569,8 @@ cudaError_t launch_for_d(const Params& p, cudaStream_t stream) {
 // dims: B, H (= n_kv), G, S, Sk, D.
 // strides (in elements): q b,h,g,s; k b,h,s; v b,h,s; out b,h,g,s.  The last
 // dimension of each is contiguous.  lse is a contiguous (B, H, G, S) fp32.
-// dtype: 0 float32, 1 bfloat16; bfloat16 takes only a positive scale (its
-// running max is taken over the unscaled scores).  Returns a cudaError_t.
+// dtype: 0 float32, 1 bfloat16; any nonzero scale (bfloat16 runs a negative
+// one on a negated q tile with |scale|).  Returns a cudaError_t.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, const int64_t* dims,
                          const int64_t* strides, int dtype, int causal,
@@ -587,6 +599,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   p.prefix = prefix;
   p.scale = scale;
   p.vec = p.D % 8 == 0;
+  p.negq = 0;
   const void* operands[] = {q, k, v, out};
   for (const void* ptr : operands)
     p.vec = p.vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
@@ -598,7 +611,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   switch (dtype) {
     case 0: return static_cast<int>(launch_for_d(p, st));
     case 1:
-      if (!(scale > 0.f)) return static_cast<int>(cudaErrorInvalidValue);
+      if (!(fabsf(scale) > 0.f)) return static_cast<int>(cudaErrorInvalidValue);
+      p.negq = scale < 0.f;
+      p.scale = fabsf(scale);
       return static_cast<int>(launch_tc_for_d(p, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

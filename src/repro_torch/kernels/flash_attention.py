@@ -115,8 +115,7 @@ def _check_cuda(*ts):
 def flash_fwd(q, k, v, *, causal=True, window=0, prefix=0, scale=None):
     """q: (B, n_kv, G, S, D); k, v: (B, n_kv, Sk, D), any strides with a
     contiguous last dimension.  Returns (out (B, n_kv, G, S, D) in q's
-    dtype, lse (B, n_kv, G, S) fp32).  ``scale`` defaults to 1/sqrt(D); on
-    the card, bf16 inputs take only a positive scale."""
+    dtype, lse (B, n_kv, G, S) fp32).  ``scale`` defaults to 1/sqrt(D)."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, causal=causal, window=window,
@@ -125,9 +124,6 @@ def flash_fwd(q, k, v, *, causal=True, window=0, prefix=0, scale=None):
     B, H, G, S, D = q.shape
     Sk = k.shape[2]
     scale = float(scale if scale else 1.0 / math.sqrt(D))
-    if q.dtype == torch.bfloat16 and scale < 0:
-        raise ValueError(f"flash_fwd's bf16 kernel takes a positive scale, "
-                         f"not {scale}")
     # out lives in (B, S, n_kv, G, D) memory, so the model's (B, S, Hq, D)
     # view of it is free.
     out = torch.empty((B, S, H, G, D), dtype=q.dtype,

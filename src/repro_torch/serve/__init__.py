@@ -1,5 +1,10 @@
-"""Serving steps of the PyTorch port."""
+"""Serving of the PyTorch port: the steps, the KV-cache store and the
+fleet scheduler."""
+from .kvstore import KVCacheStore, KVStoreError
+from .scheduler import NodeState, SchedulerError, ServeScheduler
 from .serve_step import (make_decode_step, make_prefill_step,
                          measure_decode_s)
 
-__all__ = ["make_decode_step", "make_prefill_step", "measure_decode_s"]
+__all__ = ["KVCacheStore", "KVStoreError", "NodeState", "SchedulerError",
+           "ServeScheduler", "make_decode_step", "make_prefill_step",
+           "measure_decode_s"]

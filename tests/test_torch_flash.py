@@ -122,15 +122,17 @@ def _bf16(x):
     return torch.as_tensor(np.asarray(x)).to(torch.bfloat16).float()
 
 
-def _fwd_tensor_core_roundings(q, k, v, causal, window, prefix, bk=64):
+def _fwd_tensor_core_roundings(q, k, v, causal, window, prefix, scale,
+                               bk=64):
     """The bf16 forward kernel's arithmetic (csrc/flash_fwd.cu,
-    flash_fwd_tc_kernel): s as fp32 sums of exact products of bf16 inputs,
-    the online softmax over kv tiles of ``bk`` columns in fp32, p rounded
-    to bf16 as the operand of P.V, l summed from the fp32 p, fp32 sums,
-    and ``out`` rounded to bf16 once."""
-    S, Sk, D = q.shape[3], k.shape[2], q.shape[4]
+    flash_fwd_tc_kernel): s as fp32 sums of exact products of bf16 inputs
+    (a negative scale as (-q).k.|scale|), the online softmax over kv tiles
+    of ``bk`` columns in fp32, p rounded to bf16 as the operand of P.V, l
+    summed from the fp32 p, fp32 sums, and ``out`` rounded to bf16 once."""
+    S, Sk = q.shape[3], k.shape[2]
     allow = fa._allow(S, Sk, causal, window, prefix, "cpu")
-    s = torch.einsum("bhgqd,bhkd->bhgqk", q, k) / np.sqrt(D)
+    sign = -1.0 if scale < 0 else 1.0
+    s = torch.einsum("bhgqd,bhkd->bhgqk", sign * q, k) * abs(scale)
     s = s.masked_fill(~allow, fa.NEG)
     m = torch.full(s.shape[:-1], fa.NEG)
     l = torch.zeros(s.shape[:-1])
@@ -152,20 +154,24 @@ def _fwd_tensor_core_roundings(q, k, v, causal, window, prefix, bk=64):
     (1, 80, 4, 2, 128, True, 0, 0),     # S not a multiple of 64-row tiles
     (1, 144, 4, 1, 128, True, 48, 0),   # ragged S with a window
     (2, 64, 4, 2, 40, True, 0, 0),      # D zero-padded to 48 in the kernel
+    # a negative scale, -1/sqrt(D): causal, and windowed
+    (2, 64, 4, 2, 128, True, 0, 0, -1),
+    (1, 144, 4, 1, 128, True, 48, 0, -1),
 ])
 def test_bf16_tensor_core_roundings_match_pallas_kernel(case):
     """The rounding points of the bf16 tensor-core forward kernel, emulated
     on the CPU, against the JAX ``flash_fwd_pallas`` (interpret mode, fp32)
     on the same bf16-rounded inputs, under chip_smoke.py's bf16 limits."""
-    B, S, Hq, n_kv, D, causal, window, prefix = case
+    B, S, Hq, n_kv, D, causal, window, prefix = case[:8]
+    scale = (case[8] if len(case) > 8 else 1) / np.sqrt(D)
     q5, k4, v4 = (_bf16(a).numpy()
                   for a in _five_d(*_mk(case, seed=S + 3 * D), n_kv))
     mask = dict(causal=causal, window=window, prefix=prefix)
     want_out, want_lse = flash_fwd_pallas(
         jnp.asarray(q5), jnp.asarray(k4), jnp.asarray(v4), bq=16, bk=16,
-        interpret=True, **mask)
+        scale=scale, interpret=True, **mask)
     out, lse = _fwd_tensor_core_roundings(
-        *(torch.from_numpy(a) for a in (q5, k4, v4)), **mask)
+        *(torch.from_numpy(a) for a in (q5, k4, v4)), scale=scale, **mask)
     want_out = torch.tensor(np.asarray(want_out))
     want_lse = torch.tensor(np.asarray(want_lse))
     torch.testing.assert_close(out, want_out, rtol=BF16_TOL["out"],

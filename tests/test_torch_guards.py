@@ -1,6 +1,7 @@
-"""Guards of the PyTorch port: it imports neither JAX nor the JAX package,
-its entry points never fall back to the CPU on their own, and
-chip_smoke.py refuses to run (and prints no result) without a card."""
+"""Guards of the PyTorch port: it, its examples and chip_smoke.py import
+neither JAX nor the JAX package, its entry points never fall back to the
+CPU on their own, and chip_smoke.py refuses to run (and prints no result)
+without a card."""
 import os
 import pathlib
 import shutil
@@ -12,6 +13,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = ["torch_serve_kvcache", "torch_quickstart", "torch_train_restart"]
 
 
 def _modules():
@@ -36,15 +38,18 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
               "repro_torch.ckpt.serializer", "repro_torch.ckpt.checkpointer",
               "repro_torch.ckpt.manager", "repro_torch.core.engine",
               "repro_torch.data.pipeline", "repro_torch.ft.failures",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.serve.kvstore",
+              "repro_torch.serve.scheduler"):
         assert m in mods
+    scripts = [ROOT / "chip_smoke.py"] + [ROOT / "examples" / f"{e}.py"
+                                          for e in EXAMPLES]
     code = "\n".join([
         "import importlib, importlib.util, sys",
         f"sys.path.insert(0, {str(ROOT / 'src')!r})",
         f"for m in {mods!r}: importlib.import_module(m)",
-        "spec = importlib.util.spec_from_file_location('chip_smoke', "
-        f"{str(ROOT / 'chip_smoke.py')!r})",
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))",
+        f"for i, f in enumerate({[str(p) for p in scripts]!r}):",
+        "    spec = importlib.util.spec_from_file_location(f'script{i}', f)",
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))",
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
         "or m.startswith('jaxlib'))",
@@ -57,7 +62,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
 @pytest.mark.parametrize("call", ["init_model", "make_inputs", "init_cache",
                                   "make_prefill_step", "make_decode_step",
                                   "measure_decode_s", "make_train_step",
-                                  "make_eval_step", "launch.train.run"])
+                                  "make_eval_step", "launch.train.run",
+                                  "KVCacheStore"])
 def test_entry_points_refuse_cpu_without_being_asked(call):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -76,9 +82,18 @@ def test_entry_points_refuse_cpu_without_being_asked(call):
         "make_train_step": lambda: train.make_train_step(cfg),
         "make_eval_step": lambda: train.make_eval_step(cfg),
         "launch.train.run": lambda: _run_driver_on_the_default_device(),
+        "KVCacheStore": lambda: _kvcache_store_on_the_default_device(),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[call]()
+
+
+def _kvcache_store_on_the_default_device():
+    from repro_torch.core import Pool, Topology
+    from repro_torch.core.interfaces import DFS
+    from repro_torch.serve import KVCacheStore
+    pool = Pool(Topology(n_server_nodes=2, engines_per_node=1))
+    KVCacheStore(DFS(pool.create_container("c", oclass="S1")))
 
 
 def _run_driver_on_the_default_device():

@@ -131,11 +131,29 @@ def test_flash_fwd_bf16_unaligned_views_match_plain_version(cuda, view):
     _assert_row_blocks_close(out, ref_out, torch.bfloat16, "out")
 
 
-def test_flash_fwd_kernel_refuses_a_negative_scale(cuda):
-    q = torch.randn((1, 1, 1, 8, 64), device=cuda).to(torch.bfloat16)
-    k = torch.randn((1, 1, 8, 64), device=cuda).to(torch.bfloat16)
-    with pytest.raises(ValueError, match="positive scale"):
-        fa.flash_fwd(q, k, k, scale=-0.125)
+def test_flash_fwd_bf16_kernel_takes_a_negative_scale(cuda):
+    """A negative scale runs the tensor-core kernel on a negated q tile
+    with |scale|: held against the plain version at the bf16 limits,
+    causal and windowed, at D == 128 (no column guards) and D = 80."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for B, S, H, D, window in [(2, 200, 4, 128, 0), (1, 300, 2, 80, 64)]:
+        q, k, v = (torch.randn(shape, device=cuda, generator=g)
+                   .to(torch.bfloat16)
+                   for shape in [(B, H, 2, S, D), (B, H, S, D),
+                                 (B, H, S, D)])
+        scale = -1.0 / D ** 0.5
+        before = fa.LAUNCHES
+        out, lse = fa.flash_fwd(q, k, v, causal=True, window=window,
+                                scale=scale)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES == before + 1
+        ref_out, ref_lse = fa.flash_fwd_reference(
+            q.float(), k.float(), v.float(), causal=True, window=window,
+            scale=scale)
+        tol = TOL[torch.bfloat16]
+        torch.testing.assert_close(out.float(), ref_out, rtol=tol, atol=tol)
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-3, atol=1e-3)
+        _assert_row_blocks_close(out, ref_out, torch.bfloat16, "out")
 
 
 def test_flash_fwd_fp32_kernel_takes_a_negative_scale(cuda):
