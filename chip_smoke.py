@@ -13,7 +13,8 @@ Phases, each fatal on failure:
    cores (HMMA/HGMMA instructions in their SASS);
 2. hold each kernel against its plain torch version on the card: flash
    attention forward and backward in fp32 and bf16 at the reference tests'
-   cases, a ragged S, D=256 and the slices' shapes, the backward fed the
+   cases, a ragged S, D=256 and the slices' shapes (the MoE slices' GQA
+   with G = 16 query heads a KV head among them), the backward fed the
    forward kernel's own ``out`` and ``lse``; quantize / dequantize
    bit for bit on a layer-sized gradient, an all-zero group and .5 ties;
    checksum and stripe pack / unpack bit for bit, the checksum also
@@ -44,6 +45,12 @@ Phases, each fatal on failure:
    params and batch, then run ``make_train_step`` once to warm up and 3
    timed steps with every launch counter set to 0 just before and read
    just after (exact counts per step), and check the loss falls;
+   then the MoE family: qwen3-moe-235b-a22b at full width, its depth cut,
+   serving (8 layers; the serving slice's prompts and decode steps with
+   exact launch counts, each layer's drop fraction, decode at S against a
+   prefill of S+1 at the no-drop capacity factor, one layer's ``moe_ffn``
+   against the explicit per-token mixture) and training (2 layers; the
+   training slice's checks, the aux loss finite and positive);
 5. drive the checkpointed-training slice through the port's driver
    (``launch.train.run``): deepseek-7b at full width cut to 2 layers,
    the training slice's settings, async checkpoints every 3 steps into the
@@ -57,7 +64,8 @@ Phases, each fatal on failure:
    checkpoint through ``ops.shard_pack`` / ``ops.shard_unpack``
    (16 targets, 64 KiB cells), with exact launch counts;
 6. time the slices and each kernel against its bound, its plain version and
-   the nearest PyTorch call.
+   the nearest PyTorch call, the flash kernels also at the MoE slices'
+   shapes.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the kernels' JSON record, and the card's line precedes that.
@@ -91,8 +99,41 @@ TRAIN_SEQ = 4096
 TRAIN_TIMED_STEPS = 3
 TRAIN_CASE = (TRAIN_BATCH, TRAIN_SEQ, 32, 32, 128, True, 0, 0)
 
+# The MoE slice: qwen3-moe-235b-a22b at full width (d 4096, 64 q heads over
+# 4 KV heads of 128, 128 experts of ff 1536, top-8, vocab 151936, bf16),
+# its depth cut from 94 layers: 8 for serving (8 x 4.976 GB of layers +
+# 2.49 GB of embedding and head = 42.3 GB), 2 for training (the params,
+# their gradients and Adafactor's bf16 moment, 3 x 12.4 GB, plus
+# activations).  Its attention is GQA with G = 16 query heads a KV head.
+MOE_ARCH = "qwen3-moe-235b-a22b"
+MOE_SERVE_LAYERS = 8
+MOE_TRAIN_LAYERS = 2
+MOE_SERVE_CASE = (SLICE_BATCH, SLICE_PROMPT, 64, 4, 128, True, 0, 0)
+MOE_TRAIN_CASE = (TRAIN_BATCH, TRAIN_SEQ, 64, 4, 128, True, 0, 0)
+# One layer's moe_ffn on the card against an explicit per-token mixture
+# (every expert on every token, weighted by the top-k renormalised
+# router probabilities, in fp32 from the same bf16 weights), at the no-drop
+# capacity factor E/k: the bf16 path's largest |difference| over the
+# mixture's largest |value| (bf16 inputs of the three products and of the
+# gate product, each rounded at 2^-9), and the same layer in fp32
+# (summation order only).
+MOE_MIX_TOKENS = 256
+MOE_MIX_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# Decode at S against a prefill of S+1.  In bf16 the two paths differ by
+# bf16 noise (1.8e-2 in the dense slice), and where that noise moves a
+# token's k-th and (k+1)-th router probabilities past each other, the
+# token goes to another expert: a discrete jump of its whole expert
+# output.  So over MOE_SERVE_LAYERS in bf16 the identity is held with the
+# decode's routing replayed from the prefill's (the free reading is
+# reported with the rows routed apart), and at full width in fp32, cut to
+# MOE_CHECK_LAYERS layers (24.9 GB of params), both free and replayed.
+# Likewise the training slice's kernel path against its plain path: the
+# loss and grad norm are held free and replayed, each leaf replayed (the
+# plain path takes the kernel path's choices), the free leaves reported.
+MOE_CHECK_LAYERS = 2
+
 # (B, S, Hq, n_kv, D, causal, window, prefix): the reference tests' cases,
-# a ragged S, and the slice's shape (last).
+# a ragged S, the MoE serving shape (G = 16) and the slice's shape (last).
 KERNEL_CASES = [
     (2, 64, 4, 2, 128, True, 0, 0),
     (2, 64, 4, 2, 80, True, 0, 0),
@@ -100,6 +141,7 @@ KERNEL_CASES = [
     (2, 64, 4, 4, 128, True, 0, 16),
     (1, 64, 4, 4, 128, False, 0, 0),
     (2, 1000, 4, 2, 128, True, 0, 0),
+    MOE_SERVE_CASE,
     (SLICE_BATCH, SLICE_PROMPT, 32, 32, 128, True, 0, 0),
 ]
 # fp32: the reference tests' 3e-4.  bf16 inputs: the tensor-core kernel
@@ -116,7 +158,7 @@ TOL = {"float32": {"out": 3e-4, "lse": 3e-4},
 # relative plus 1e-2 of its largest |value| (sums over up to 4096 keys
 # cancel, so single elements can be far below the tensor's scale).
 BWD_CASES = KERNEL_CASES[:6] + [(1, 333, 6, 3, 256, True, 100, 0),
-                                TRAIN_CASE]
+                                MOE_SERVE_CASE, TRAIN_CASE, MOE_TRAIN_CASE]
 GRAD_TOL = {"float32": (4e-3, 4e-3), "bfloat16": (1e-2, 1e-2)}
 # The elementwise limits above are loose for the late rows of a causal
 # pass, whose values are one to two orders of magnitude below the first
@@ -249,6 +291,12 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _greedy(logits):
+    """The greedy next token of each row, (B, 1) int32."""
+    import torch
+    return torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+
+
 def make_qkv(case, dtype, gen):
     """q, k, v in the model's (B, S, H, D) layout and the kernel's 5-D
     views of them (strided, no copies), as ``ops.flash_attention`` makes
@@ -304,12 +352,12 @@ def phase_build() -> None:
 
 
 def phase_kernels() -> float:
-    """Kernel vs plain version on the card; returns the slice case's bf16
-    max |out error|."""
+    """Kernel vs plain version on the card; returns the largest bf16
+    |out error| at the serving slices' shapes (deepseek-7b and qwen3-moe)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(11)
-    slice_err = None
+    slice_err = 0.0
     for case in KERNEL_CASES:
         causal, window, prefix = case[5:]
         for dtype in (torch.float32, torch.bfloat16):
@@ -326,8 +374,9 @@ def phase_kernels() -> float:
             if not r["ok"]:
                 fail(f"flash_fwd disagrees with its plain version: {case} "
                      f"{dtype}")
-            if case == KERNEL_CASES[-1] and dtype == torch.bfloat16:
-                slice_err = r["max_abs_err_out"]
+            if case in (KERNEL_CASES[-1], MOE_SERVE_CASE) \
+                    and dtype == torch.bfloat16:
+                slice_err = max(slice_err, r["max_abs_err_out"])
     # a negative scale at the serving shape: the bf16 kernel runs it on a
     # negated q tile with |scale|
     case = KERNEL_CASES[-1]
@@ -349,14 +398,15 @@ def phase_kernels() -> float:
 def phase_bwd_kernels() -> tuple[float, float]:
     """The forward kernel, then the backward kernels fed its own ``out``
     and ``lse`` as the training step feeds them, each against its plain
-    version on the card; returns the training slice case's bf16 max
-    |error| of ``out`` and over dq, dk and dv.  Runs before any model is
-    loaded: at that shape the plain versions hold several 4.3 GB
-    (B, H, S, S) fp32 tensors."""
+    version on the card; returns the largest bf16 |error| of ``out`` and
+    over dq, dk and dv at the training slices' shapes (deepseek-7b and
+    qwen3-moe).  Runs before any model is loaded: at the qwen3-moe shape
+    the plain versions hold several 8.6 GB (B, n_kv, G, S, S) fp32
+    tensors."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(13)
-    fwd_err = bwd_err = None
+    fwd_err = bwd_err = 0.0
     for case in BWD_CASES:
         causal, window, prefix = case[5:]
         mask = dict(causal=causal, window=window, prefix=prefix)
@@ -401,8 +451,10 @@ def phase_bwd_kernels() -> tuple[float, float]:
             if not ok:
                 fail(f"flash_bwd disagrees with its plain version: {case} "
                      f"{dtype}")
-            if case == TRAIN_CASE and dtype == torch.bfloat16:
-                fwd_err, bwd_err = fwd["max_abs_err_out"], max(errs)
+            if case in (TRAIN_CASE, MOE_TRAIN_CASE) \
+                    and dtype == torch.bfloat16:
+                fwd_err = max(fwd_err, fwd["max_abs_err_out"])
+                bwd_err = max(bwd_err, *errs)
             del got, want, lse, delta
     torch.cuda.empty_cache()
     return fwd_err, bwd_err
@@ -522,15 +574,22 @@ def phase_storage_kernels(device="cuda") -> dict:
     return errs
 
 
-def phase_slice() -> dict:
-    """The serving slice at full width through the port's entry points."""
+def serve_main_path(cfg) -> tuple[dict, dict]:
+    """A serving slice at full width through the port's entry points:
+    params from a seeded generator on the card, B=SLICE_BATCH prompts of
+    SLICE_PROMPT tokens through ``make_prefill_step``, then
+    SLICE_DECODE_STEPS greedy ``make_decode_step`` steps, after a warm-up.
+    Every launch counter is set to 0 just before the prefill and before
+    the decode steps and read just after each: ``flash_fwd`` must run once
+    a layer in the prefill and nothing else anywhere.  The logits must be
+    finite and the tokens in the vocabulary.  Returns the state the
+    phase's checks go on from (params, prompts, steps, the first greedy
+    token, the first decode step's logits, the last token and the cache)
+    and the readings."""
     import torch
-    from repro_torch.configs import get_arch
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import forward_prefill, init_model, param_count
+    from repro_torch.models import init_model, param_count
     from repro_torch.serve import make_decode_step, make_prefill_step
 
-    cfg = dataclasses.replace(get_arch(SLICE_ARCH), attn_impl="flash_pallas")
     B, S = SLICE_BATCH, SLICE_PROMPT
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
@@ -543,25 +602,22 @@ def phase_slice() -> dict:
     prefill = make_prefill_step(cfg, pad_to=S + SLICE_PAD, device="cuda")
     decode = make_decode_step(cfg, device="cuda")
 
-    def greedy(logits):
-        return torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
-
     # warm-up: library load, cuBLAS handles, allocator (not counted)
     logits, cache = prefill(params, batch)
-    decode(params, cache, greedy(logits), S)
+    decode(params, cache, _greedy(logits), S)
     del cache
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     # the main path: counts to 0, one prefill, greedy decode, counts read
-    fa.LAUNCHES = 0
+    _zero_counters()
     t0 = time.perf_counter()
     logits, cache = prefill(params, batch)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    prefill_launches = fa.LAUNCHES
-    tok0 = greedy(logits)
-    tok = tok0
+    launches = {"prefill": _counters()}
+    _zero_counters()
+    tok0 = tok = _greedy(logits)
     generated = []
     t0 = time.perf_counter()
     for t in range(SLICE_DECODE_STEPS):
@@ -571,32 +627,61 @@ def phase_slice() -> dict:
         generated.append(tok)
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3 / SLICE_DECODE_STEPS
-    launches = fa.LAUNCHES
+    launches["decode"] = _counters()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    if prefill_launches != cfg.n_layers or launches != cfg.n_layers:
-        fail(f"flash_fwd launches: {prefill_launches} in prefill, "
-             f"{launches} in the whole run; want {cfg.n_layers} per prefill "
-             "and none in decode")
+    want = {part: {n: 0 for n in c} for part, c in launches.items()}
+    want["prefill"]["flash_fwd"] = cfg.n_layers
+    if launches != want:
+        fail(f"{cfg.name} serving launches {launches}, want {want}")
     gen_tokens = torch.cat(generated, dim=1)
     if not (bool(torch.isfinite(logits).all())
             and bool(torch.isfinite(step_logits).all())
             and bool(torch.isfinite(decode0_logits).all())):
-        fail("non-finite logits")
+        fail(f"{cfg.name} serving: non-finite logits")
     if gen_tokens.shape != (B, SLICE_DECODE_STEPS) or \
             int(gen_tokens.min()) < 0 or \
             int(gen_tokens.max()) >= cfg.padded_vocab():
-        fail(f"bad generated tokens {tuple(gen_tokens.shape)}")
-    del cache
+        fail(f"{cfg.name} serving: bad generated tokens "
+             f"{tuple(gen_tokens.shape)}")
+    state = {"params": params, "prompts": prompts, "prefill": prefill,
+             "decode": decode, "tok0": tok0, "decode0_logits": decode0_logits,
+             "tok": tok, "cache": cache}
+    return state, {
+        "arch": cfg.name, "layers": cfg.n_layers,
+        "params": param_count(params), "dtype": cfg.param_dtype,
+        "batch": B, "prompt": S, "pad_to": S + SLICE_PAD,
+        "decode_steps": SLICE_DECODE_STEPS, "init_s": init_s,
+        "prefill_ms": prefill_ms,
+        "prefill_tokens_per_s": B * S / (prefill_ms / 1e3),
+        "decode_ms_per_step": decode_ms,
+        "decode_tokens_per_s": B / (decode_ms / 1e3),
+        "peak_mem_gb": peak_gb, "launches": launches}
+
+
+def phase_slice() -> dict:
+    """The serving slice at full width through the port's entry points
+    (``serve_main_path``), then the kernel path's last-token hidden state
+    against the plain blockwise path's, and decode at S against a prefill
+    of S+1."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import forward_prefill
+
+    cfg = dataclasses.replace(get_arch(SLICE_ARCH), attn_impl="flash_pallas")
+    st, r = serve_main_path(cfg)
+    params, prompts = st["params"], st["prompts"]
+    del st["cache"]
+    batch, pad_to = {"tokens": prompts}, SLICE_PROMPT + SLICE_PAD
 
     # kernel path vs plain blockwise path: last-token hidden state
     with torch.no_grad():
-        h_kernel, c = forward_prefill(params, cfg, batch, pad_to=S + SLICE_PAD)
+        h_kernel, c = forward_prefill(params, cfg, batch, pad_to=pad_to)
         h_kernel = h_kernel[:, -1].float()
         del c
         h_plain, c = forward_prefill(
             params, dataclasses.replace(cfg, attn_impl="flash"), batch,
-            pad_to=S + SLICE_PAD)
+            pad_to=pad_to)
         h_plain = h_plain[:, -1].float()
         del c
     hidden_rel = rel_err(h_kernel, h_plain)
@@ -604,28 +689,23 @@ def phase_slice() -> dict:
         fail(f"kernel-path hidden state vs blockwise: rel err {hidden_rel}")
 
     # prefill-then-decode identity: decode at position S == prefill of S+1
-    full_logits, c = prefill(params, {"tokens": torch.cat([prompts, tok0],
-                                                          dim=1)})
+    full_logits, c = st["prefill"](params, {"tokens": torch.cat(
+        [prompts, st["tok0"]], dim=1)})
     del c
+    decode0_logits = st["decode0_logits"]
     decode_rel = rel_err(decode0_logits[:, -1], full_logits[:, -1])
-    argmax_agree = float((greedy(decode0_logits) == greedy(full_logits))
+    argmax_agree = float((_greedy(decode0_logits) == _greedy(full_logits))
                          .float().mean())
     if not math.isfinite(decode_rel) or decode_rel > DECODE_REL_TOL:
         fail(f"decode at S vs prefill of S+1: rel err {decode_rel}")
-
-    return {"arch": cfg.name, "params": param_count(params),
-            "dtype": cfg.param_dtype, "batch": B, "prompt": S,
-            "decode_steps": SLICE_DECODE_STEPS, "init_s": init_s,
-            "prefill_ms": prefill_ms,
-            "prefill_tokens_per_s": B * S / (prefill_ms / 1e3),
-            "decode_ms_per_step": decode_ms,
-            "decode_tokens_per_s": B / (decode_ms / 1e3),
-            "peak_mem_gb": peak_gb, "flash_fwd_launches": launches,
-            "hidden_rel_err_vs_blockwise": hidden_rel,
-            "hidden_rel_tol": HIDDEN_REL_TOL,
-            "decode_vs_prefill_rel_err": decode_rel,
-            "decode_rel_tol": DECODE_REL_TOL,
-            "decode_vs_prefill_argmax_agree": argmax_agree}
+    r.update({"flash_fwd_launches": sum(
+                  c["flash_fwd"] for c in r["launches"].values()),
+              "hidden_rel_err_vs_blockwise": hidden_rel,
+              "hidden_rel_tol": HIDDEN_REL_TOL,
+              "decode_vs_prefill_rel_err": decode_rel,
+              "decode_rel_tol": DECODE_REL_TOL,
+              "decode_vs_prefill_argmax_agree": argmax_agree})
+    return r
 
 
 def phase_serve_offload() -> dict:
@@ -658,7 +738,7 @@ def phase_serve_offload() -> dict:
     logits, cache = prefill(params, {"tokens": prompts})
     torch.cuda.synchronize()
     launches["prefill"] = _counters()
-    tok0 = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    tok0 = _greedy(logits)
     # decode writes a cache in place: the copy the restore is held against
     clone = {k: v.clone() for k, v in cache.items()}
     leaf_shape = list(cache["k"].shape)     # (layers, B, slots, n_kv, D)
@@ -773,6 +853,197 @@ def phase_serve_offload() -> dict:
         fail(f"KV-cache offload round trip: restored {restored_equal}, "
              f"window {window_equal}, decode {decode_equal}, manifest "
              f"checksums {csum_equal}")
+    return r
+
+
+def _watch_routes(fn, pick):
+    """Run ``fn()``; return its result and ``pick(routing)`` of each
+    ``moe.route`` call in it (one per MoE layer and pass)."""
+    from repro_torch.models import moe
+    route, seen = moe.route, []
+
+    def watching_route(*a, **kw):
+        r = route(*a, **kw)
+        seen.append(pick(r))
+        return r
+    moe.route = watching_route
+    try:
+        return fn(), seen
+    finally:
+        moe.route = route
+
+
+def _replay_routes(fn, experts):
+    """Run ``fn()`` with the i-th ``moe.route`` call taking its choices from
+    ``experts[i]`` (gates and slots from its own router probabilities)."""
+    from repro_torch.models import moe
+    route, it = moe.route, iter(experts)
+    moe.route = lambda router, xf, k, capacity: moe.assign(
+        moe.router_probs(router, xf), next(it), capacity)
+    try:
+        return fn()
+    finally:
+        moe.route = route
+
+
+def _drop_fraction(r) -> float:
+    """The share of (token, choice) pairs that lost their slot."""
+    return float((~r.keep).float().mean())
+
+
+def _apart(a, b) -> int:
+    """Tokens whose set of experts differs between two routings."""
+    return int((a.sort(dim=-1).values != b.sort(dim=-1).values)
+               .any(-1).sum())
+
+
+def moe_decode_vs_prefill(params, cfg, prompts) -> dict:
+    """Decode at position S against the last row of a prefill of S+1
+    tokens, at the no-drop capacity factor E/k (a token dropped in the
+    prefill and kept in the decode would differ legitimately): the
+    relative error of the logits and the greedy tokens' agreement, free
+    (each path routes itself; per layer, the rows whose last token went
+    to another set of experts) and with the decode's routing replayed
+    from the prefill's last tokens, and the drop fraction of every layer
+    in all three."""
+    import torch
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    B, S = prompts.shape
+    cf = cfg.n_experts / cfg.experts_per_token
+    cfg = dataclasses.replace(cfg, capacity_factor=cf)
+    prefill = make_prefill_step(cfg, pad_to=S + SLICE_PAD, device="cuda")
+    decode = make_decode_step(cfg, device="cuda")
+    last = lambda r: r.expert.reshape(B, -1, r.expert.shape[-1])[:, -1]
+    both = lambda r: (_drop_fraction(r), last(r))
+    logits, cache = prefill(params, {"tokens": prompts})
+    tok0 = _greedy(logits)
+    cache2 = {n: c.clone() for n, c in cache.items()}
+    (_, free, _), dec = _watch_routes(
+        lambda: decode(params, cache, tok0, S), both)
+    (full, _), pre = _watch_routes(lambda: prefill(params, {
+        "tokens": torch.cat([prompts, tok0], dim=1)}), both)
+    del cache
+    (_, forced, _), rep = _watch_routes(lambda: _replay_routes(
+        lambda: decode(params, cache2, tok0, S),
+        [e[None] for _, e in pre]), _drop_fraction)
+    del cache2
+    agree = lambda lg: float((_greedy(lg) == _greedy(full)).float().mean())
+    return {"capacity_factor": cf,
+            "rel_err": rel_err(free[:, -1], full[:, -1]),
+            "argmax_agree": agree(free),
+            "rows_routed_apart": [_apart(a, b)
+                                  for (_, a), (_, b) in zip(dec, pre)],
+            "replayed_rel_err": rel_err(forced[:, -1], full[:, -1]),
+            "replayed_argmax_agree": agree(forced),
+            "drop_fractions": [d for d, _ in dec + pre] + rep}
+
+
+def moe_mixture_check(lp: dict, cfg, gen) -> dict:
+    """One layer's ``moe_ffn`` on MOE_MIX_TOKENS random tokens at the
+    no-drop capacity factor E/k, in bf16 (the slice's path) and in fp32,
+    against an explicit per-token mixture in fp32 from the same bf16
+    weights: every expert's SwiGLU on every token, weighted by the
+    renormalised top-k router probabilities (``torch.topk``'s set; the
+    order does not enter the sum).  The bf16 path also runs twice and must
+    give the same bits (no atomics in the gather dispatch and combine)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import moe
+    d, E, k = cfg.d_model, cfg.n_experts, cfg.experts_per_token
+    cfg16 = dataclasses.replace(cfg, capacity_factor=E / k)
+    x = torch.randn((1, MOE_MIX_TOKENS, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        y16, _ = moe.moe_ffn(lp, x, cfg16)
+        y16b, _ = moe.moe_ffn(lp, x, cfg16)
+        lp32 = {n: w.float() for n, w in lp.items()}
+        y32, _ = moe.moe_ffn(lp32, x.float(), dataclasses.replace(
+            cfg16, param_dtype="float32"))
+        xf = x.float().reshape(MOE_MIX_TOKENS, d)
+        probs = torch.softmax(x.float() @ lp["router"], dim=-1)[0]
+        topv, topi = torch.topk(probs, k, dim=-1)
+        topv = topv / topv.sum(-1, keepdim=True)
+        ref = torch.zeros_like(xf)
+        for e in range(E):
+            w = (topv * (topi == e)).sum(-1)
+            if not bool(w.any()):
+                continue
+            h = F.silu(xf @ lp32["w_gate"][e]) * (xf @ lp32["w_up"][e])
+            ref += w[:, None] * (h @ lp32["w_down"][e])
+        del lp32
+    scale = float(ref.abs().max())
+    r = {"tokens": MOE_MIX_TOKENS, "capacity_factor": E / k,
+         "experts_used": int(topi.unique().numel()),
+         "bf16_rel_to_max": float((y16[0].float() - ref).abs().max())
+         / scale,
+         "fp32_rel_to_max": float((y32[0] - ref).abs().max()) / scale,
+         "bf16_runs_bit_equal": torch.equal(y16, y16b), "ref_abs_max": scale}
+    r["ok"] = (r["bf16_rel_to_max"] <= MOE_MIX_TOL["bfloat16"]
+               and r["fp32_rel_to_max"] <= MOE_MIX_TOL["float32"]
+               and r["bf16_runs_bit_equal"])
+    return r
+
+
+def phase_moe_serve() -> dict:
+    """The MoE serving slice at full width through the port's entry points
+    (``serve_main_path``): qwen3-moe-235b-a22b cut to MOE_SERVE_LAYERS
+    layers at the default capacity factor; the drop fraction of each layer in that prefill and in a decode step;
+    decode at S against a prefill of S+1 (``moe_decode_vs_prefill``) in
+    bf16, held with the routing replayed, and at full width in fp32 over
+    MOE_CHECK_LAYERS layers, held free and replayed; one layer's
+    ``moe_ffn`` against the per-token mixture."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_model
+    from repro_torch.models.transformer import layer
+
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_SERVE_LAYERS,
+                              attn_impl="flash_pallas")
+    st, r = serve_main_path(cfg)
+    params, prompts, cache = st["params"], st["prompts"], st.pop("cache")
+    drops = {"prefill": _watch_routes(
+                 lambda: st["prefill"](params, {"tokens": prompts}),
+                 _drop_fraction)[1],
+             "decode": _watch_routes(
+                 lambda: st["decode"](params, cache, st["tok"],
+                                      SLICE_PROMPT + SLICE_DECODE_STEPS),
+                 _drop_fraction)[1]}
+    del cache
+    # the identity in bf16: held with the routing replayed, the free
+    # reading reported (see MOE_CHECK_LAYERS)
+    ident_bf16 = moe_decode_vs_prefill(params, cfg, prompts)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    mix = moe_mixture_check(layer(params["blocks"], 0)["moe"], cfg, gen)
+    r.update({"capacity_factor": cfg.capacity_factor,
+              "drop_fraction_per_layer": drops,
+              "decode_vs_prefill_bf16": ident_bf16, "mixture": mix})
+    del params, st
+    torch.cuda.empty_cache()
+
+    # the identity held free and replayed: full width, MOE_CHECK_LAYERS
+    # layers, fp32
+    cfg32 = dataclasses.replace(cfg, n_layers=MOE_CHECK_LAYERS,
+                                param_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_model(gen, cfg32, device="cuda")
+    ident = moe_decode_vs_prefill(params, cfg32, prompts)
+    ident.update(layers=cfg32.n_layers, dtype=cfg32.param_dtype)
+    r["decode_vs_prefill"] = ident
+    del params
+    torch.cuda.empty_cache()
+    print(json.dumps({"moe_serve_checks": r}))
+    for name, i in (("bf16", ident_bf16), ("fp32", ident)):
+        if any(i["drop_fractions"]):
+            fail(f"MoE serving ({name}) dropped tokens at capacity factor "
+                 f"{i['capacity_factor']}: {i['drop_fractions']}")
+    held = [ident["rel_err"], ident["replayed_rel_err"],
+            ident_bf16["replayed_rel_err"]]
+    if not all(math.isfinite(e) and e <= DECODE_REL_TOL for e in held):
+        fail(f"MoE decode at S vs prefill of S+1: bf16 {ident_bf16}, "
+             f"fp32 {ident}")
+    if not mix["ok"]:
+        fail(f"moe_ffn vs the per-token mixture: {mix}")
     return r
 
 
@@ -1008,28 +1279,34 @@ def phase_stripe(tree: dict) -> dict:
 
 def train_model_flops(cfg, n_params: int) -> float:
     """Model FLOPs of one training step (no recompute): 6 per matmul weight
-    per token (the token-embedding lookup is no product), plus the causal
-    attention products, 4 B H D S(S+1)/2 per layer forward, x3 with the
-    backward."""
+    a token passes through (the token-embedding lookup is no product; of a
+    MoE layer's experts only the k routed ones, never all E), plus the
+    causal attention products, 4 B H D S(S+1)/2 per layer forward, x3 with
+    the backward."""
     B, S = TRAIN_BATCH, TRAIN_SEQ
-    dense = 6.0 * (n_params - cfg.padded_vocab() * cfg.d_model) * B * S
+    active = n_params - cfg.padded_vocab() * cfg.d_model
+    if cfg.family == "moe":
+        active -= cfg.n_layers * (cfg.n_experts - cfg.experts_per_token) \
+            * 3 * cfg.d_model * cfg.d_ff
+    dense = 6.0 * active * B * S
     attn = 3.0 * cfg.n_layers * 4.0 * B * cfg.n_heads * cfg.head_dim \
         * S * (S + 1) / 2
     return dense + attn
 
 
-def phase_train() -> dict:
-    """The training slice at full width through ``make_train_step``."""
+def run_train(cfg) -> dict:
+    """A training slice at full width through ``make_train_step``: the
+    kernel path's loss, grad norm and per-leaf gradients against the plain
+    path's from the same params and batch, then one warm-up step and
+    TRAIN_TIMED_STEPS timed ones with every launch counter set to 0 just
+    before and read just after (exact counts), and the loss must fall."""
     import torch
-    from repro_torch.configs import get_arch
+    from repro_torch.kernels.quantize import BLOCK_GROUPS, GROUP
     from repro_torch.models import init_model, param_count
     from repro_torch.train import (global_norm, loss_and_grads,
                                    make_eval_step, make_train_step, opt_init)
-    from repro_torch.tree import tree_items
+    from repro_torch.tree import tree_items, tree_leaves
 
-    cfg = dataclasses.replace(get_arch(SLICE_ARCH), attn_impl="flash_pallas",
-                              optimizer="adafactor", grad_compression=True,
-                              remat=True)
     B, S = TRAIN_BATCH, TRAIN_SEQ
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_model(gen, cfg, device="cuda")
@@ -1037,35 +1314,56 @@ def phase_train() -> dict:
                                      generator=gen, device="cuda",
                                      dtype=torch.int32)}
     n_params = param_count(params)
+    # leaves the int8 compression quantizes (smaller ones pass as they are)
+    n_big = sum(1 for p in tree_leaves(params)
+                if p.numel() >= GROUP * BLOCK_GROUPS)
 
     # kernel path vs plain path, same params and batch.  The kernel path's
     # grads wait on the host while the plain path runs.
-    loss_k, _, grads = loss_and_grads(params, cfg, batch)
+    (loss_k, aux_k, grads), experts = _watch_routes(
+        lambda: loss_and_grads(params, cfg, batch), lambda r: r.expert)
     gnorm_k = float(global_norm(grads))
     grads_k = {name: g.cpu() for name, g in tree_items(grads)}
     del grads
-    loss_p, _, grads = loss_and_grads(
-        params, dataclasses.replace(cfg, attn_impl="flash"), batch)
-    gnorm_p = float(global_norm(grads))
-    leaf_rel = {}
-    for name, g in tree_items(grads):
-        gk = grads_k.pop(name).to("cuda")
-        leaf_rel[name] = float((gk.float() - g.float()).norm()
-                               / g.float().norm())
-        del gk
-    del grads, grads_k
-    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    gnorm_rel = abs(gnorm_k - gnorm_p) / gnorm_p
+    plain = dataclasses.replace(cfg, attn_impl="flash")
+
+    def against_kernel(run) -> dict:
+        loss_p, aux_p, grads = run()
+        gnorm_p = float(global_norm(grads))
+        leaf_rel = {}
+        for name, g in tree_items(grads):
+            gk = grads_k[name].to("cuda")
+            leaf_rel[name] = float((gk.float() - g.float()).norm()
+                                   / g.float().norm())
+            del gk
+        del grads
+        return {"loss_plain": float(loss_p), "aux_plain": float(aux_p),
+                "loss_rel": abs(float(loss_k) - float(loss_p))
+                / abs(float(loss_p)),
+                "grad_norm_plain": gnorm_p,
+                "grad_norm_rel": abs(gnorm_k - gnorm_p) / gnorm_p,
+                "leaf_rel": leaf_rel}
+
+    (free, experts_p) = _watch_routes(lambda: against_kernel(
+        lambda: loss_and_grads(params, plain, batch)), lambda r: r.expert)
+    free["tokens_routed_apart"] = [_apart(a, b)
+                                   for a, b in zip(experts, experts_p)]
+    cmp = {"free": free}
+    if experts:     # MoE: each leaf held with the kernel path's routing
+        cmp["replayed"] = against_kernel(lambda: _replay_routes(
+            lambda: loss_and_grads(params, plain, batch), experts))
+    del grads_k
+    held = cmp.get("replayed", free)
     print(json.dumps({"train_kernel_vs_plain": {
-        "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
-        "loss_rel": loss_rel, "grad_norm_kernel": gnorm_k,
-        "grad_norm_plain": gnorm_p, "grad_norm_rel": gnorm_rel,
-        "leaf_rel": leaf_rel}}))
-    if not (loss_rel <= TRAIN_LOSS_REL_TOL
-            and gnorm_rel <= TRAIN_GNORM_REL_TOL
+        "arch": cfg.name, "loss_kernel": float(loss_k),
+        "aux_kernel": float(aux_k), "grad_norm_kernel": gnorm_k, **cmp}}))
+    if not (all(c["loss_rel"] <= TRAIN_LOSS_REL_TOL
+                and c["grad_norm_rel"] <= TRAIN_GNORM_REL_TOL
+                for c in cmp.values())
             and all(math.isfinite(v) and v <= TRAIN_LEAF_REL_TOL
-                    for v in leaf_rel.values())):
-        fail("training kernel path vs plain path out of its limits")
+                    for v in held["leaf_rel"].values())):
+        fail(f"{cfg.name} training kernel path vs plain path out of its "
+             "limits")
     torch.cuda.empty_cache()
 
     state = opt_init(cfg.optimizer, params)
@@ -1077,80 +1375,163 @@ def phase_train() -> dict:
 
     # the main path: counts to 0, 3 steps, counts read
     _zero_counters()
-    losses, norms = [], []
+    losses, norms, auxes = [], [], []
     t0 = time.perf_counter()
     for _ in range(TRAIN_TIMED_STEPS):
         params, state, m = step(params, state, batch)
         losses.append(m["loss"])
         norms.append(m["grad_norm"])
+        auxes.append(m["aux_loss"])
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED_STEPS
     launches = _counters()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(x) for x in losses]
     norms = [float(x) for x in norms]
+    auxes = [float(x) for x in auxes]
     after = float(make_eval_step(cfg, device="cuda")(params, batch))
 
     L = cfg.n_layers
     n = TRAIN_TIMED_STEPS
     want = {"flash_fwd": 2 * L * n, "flash_bwd_dq": L * n,
-            "flash_bwd_dkv": L * n, "quantize": 11 * n, "dequantize": 11 * n,
-            "checksum": 0, "shard_pack": 0, "shard_unpack": 0}
+            "flash_bwd_dkv": L * n, "quantize": n_big * n,
+            "dequantize": n_big * n, "checksum": 0, "shard_pack": 0,
+            "shard_unpack": 0}
     if launches != want:
-        fail(f"training launches {launches}, want {want}")
+        fail(f"{cfg.name} training launches {launches}, want {want}")
     if not all(math.isfinite(x) for x in [first_loss, after, *losses,
-                                          *norms]):
-        fail(f"non-finite training loss or grad norm: {losses} {norms}")
+                                          *norms, *auxes]):
+        fail(f"non-finite training loss, grad norm or aux loss: {losses} "
+             f"{norms} {auxes}")
     if not after < first_loss:
         fail(f"loss did not fall: first step {first_loss}, after "
              f"{n} more steps {after}")
     flops = train_model_flops(cfg, n_params)
     del params, state
     torch.cuda.empty_cache()
-    return {"arch": cfg.name, "params": n_params, "dtype": cfg.param_dtype,
-            "optimizer": cfg.optimizer,
+    return {"arch": cfg.name, "layers": L, "params": n_params,
+            "dtype": cfg.param_dtype, "optimizer": cfg.optimizer,
             "grad_compression": cfg.grad_compression, "remat": cfg.remat,
             "attn_impl": cfg.attn_impl, "batch": B, "seq": S,
             "timed_steps": n, "first_loss": first_loss,
-            "step_losses": losses, "grad_norms": norms,
+            "step_losses": losses, "grad_norms": norms, "aux_losses": auxes,
             "loss_after": after, "step_ms": step_ms,
             "tokens_per_s": B * S / (step_ms / 1e3), "peak_mem_gb": peak_gb,
             "model_flops_per_step": flops,
             "mfu": flops / (step_ms / 1e3) / BF16_FLOP_PER_S,
-            "launches": launches,
-            "kernel_vs_plain": {"loss_rel": loss_rel,
-                                "grad_norm_rel": gnorm_rel,
-                                "max_leaf_rel": max(leaf_rel.values())}}
+            "launches": launches, "compressed_leaves": n_big,
+            "kernel_vs_plain": {
+                name: {"loss_rel": c["loss_rel"],
+                       "grad_norm_rel": c["grad_norm_rel"],
+                       "max_leaf_rel": max(c["leaf_rel"].values())}
+                for name, c in cmp.items()}}
 
 
-def phase_kernel_times() -> dict:
-    """flash_fwd at the slice's shape (bf16, causal): kernel, plain version,
-    scaled_dot_product_attention (timed as a yardstick only) and the bound."""
+def phase_train() -> dict:
+    """The training slice: deepseek-7b at full width and depth."""
+    from repro_torch.configs import get_arch
+    return run_train(dataclasses.replace(
+        get_arch(SLICE_ARCH), attn_impl="flash_pallas",
+        optimizer="adafactor", grad_compression=True, remat=True))
+
+
+def phase_moe_train() -> dict:
+    """The MoE training slice: qwen3-moe-235b-a22b at full width, its depth
+    cut to MOE_TRAIN_LAYERS, with the training slice's settings; the aux
+    loss must be finite and positive."""
+    from repro_torch.configs import get_arch
+    r = run_train(dataclasses.replace(
+        get_arch(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS,
+        attn_impl="flash_pallas", optimizer="adafactor",
+        grad_compression=True, remat=True))
+    if not all(a > 0 for a in r["aux_losses"]):
+        fail(f"MoE aux loss not positive: {r['aux_losses']}")
+    return r
+
+
+def _bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the operations
+    over the bf16 peak and the bytes over HBM's rate."""
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def attn_times(case, iters: int, plain_iters: int, bwd: bool) -> dict:
+    """flash_fwd at ``case`` (bf16, causal) and, with ``bwd``, the dq +
+    dk/dv pair fed the forward kernel's own ``out`` and ``lse``: each
+    beside its bound, its plain twin and scaled_dot_product_attention
+    (timed as a yardstick only; ``enable_gqa`` where G > 1)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    case = KERNEL_CASES[-1]
     B, S, Hq, n_kv, D = case[:5]
     gen = torch.Generator(device="cuda").manual_seed(12)
     (q, k, v), (q5, k4, v4) = make_qkv(case, torch.bfloat16, gen)
-    ms = cuda_ms(lambda: fa.flash_fwd(q5, k4, v4, causal=True), iters=20)
-    plain_ms = cuda_ms(lambda: fa.flash_fwd_reference(q5, k4, v4,
-                                                      causal=True), iters=5)
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True), iters=20)
-    # the causal triangle this data needs: S(S+1)/2 scores per head, each
-    # one multiply-add in q.k and one in p.v over D
-    flops = 4.0 * B * Hq * D * S * (S + 1) / 2
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) \
-        + 4 * B * Hq * S
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "flops": flops, "bytes": nbytes,
-            "tflops_per_s": flops / (ms / 1e3) / 1e12}
+    gqa = dict(enable_gqa=True) if n_kv < Hq else {}
+    r = {"ms": cuda_ms(lambda: fa.flash_fwd(q5, k4, v4, causal=True),
+                       iters=iters),
+         "plain_ms": cuda_ms(lambda: fa.flash_fwd_reference(
+             q5, k4, v4, causal=True), iters=plain_iters)}
+    with torch.no_grad():
+        r["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, **gqa), iters=iters)
+    # the causal triangle this data needs: S(S+1)/2 scores per q head, each
+    # product one multiply-add over D; q/k/v/dO/out/dq/dk/dv (bf16) and
+    # lse/delta (fp32) read or written once
+    prod = 2.0 * B * Hq * D * S * (S + 1) / 2
+    nq, nkv, rows = q.numel() * 2, k.numel() * 2, 4 * B * Hq * S
+    r["bound_ms"], r["bound_by"] = _bound(2 * prod, 2 * nq + 2 * nkv + rows)
+    r["flops"], r["bytes"] = 2 * prod, 2 * nq + 2 * nkv + rows
+    r["tflops_per_s"] = 2 * prod / (r["ms"] / 1e3) / 1e12
+    if not bwd:
+        return r
+    do = torch.randn(q.shape, generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    do5 = do.reshape(B, S, n_kv, Hq // n_kv, D).permute(0, 2, 3, 1, 4)
+    out5, lse = fa.flash_fwd(q5, k4, v4, causal=True)
+    delta = (do5.float() * out5.float()).sum(-1)
+    pair = lambda: fa.flash_bwd(q5, k4, v4, do5, lse, delta, causal=True)
+    r["pair_ms"] = cuda_ms(pair, iters=5)
+    per = _profiled_ms(pair, TC_KERNELS["flash_bwd"])
+    r["plain_pair_ms"] = cuda_ms(lambda: fa.flash_bwd_reference(
+        q5, k4, v4, do5, lse, delta, causal=True), iters=2, warmup=1)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qh, kh, vh))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                              **gqa)
+    doh = do.transpose(1, 2)
+    r["library_pair_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        sdpa_out, (qg, kg, vg), doh, retain_graph=True), iters=5)
+    # dq does 3 products (q.k, dO.v, ds.k), dk/dv 4, the pair only 5
+    reads = 2 * nq + 2 * nkv + 2 * rows
+    for name, n_prod, written in (("dq", 3, nq), ("dkv", 4, 2 * nkv),
+                                  ("pair", 5, nq + 2 * nkv)):
+        bound, by = _bound(n_prod * prod, reads + written)
+        r[f"{name}_bound_ms"], r[f"{name}_bound_by"] = bound, by
+    r["dq_ms"] = per["flash_bwd_dq_tc_kernel"]
+    r["dkv_ms"] = per["flash_bwd_dkv_tc_kernel"]
+    del q, k, v, do, q5, k4, v4, do5, out5, lse, delta, qg, kg, vg
+    del sdpa_out, doh
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_kernel_times() -> dict:
+    """flash_fwd at the serving slice's shape (bf16, causal): kernel, plain
+    version, scaled_dot_product_attention and the bound."""
+    return attn_times(KERNEL_CASES[-1], iters=20, plain_iters=5, bwd=False)
+
+
+def phase_moe_kernel_times() -> dict:
+    """flash_fwd and the backward pair at the MoE slices' GQA shapes (64 q
+    heads over 4 KV heads, G = 16): serving (B=4 x 1024) and training
+    (B=2 x 4096)."""
+    return {"serve_shape": attn_times(MOE_SERVE_CASE, iters=20,
+                                      plain_iters=5, bwd=True),
+            "train_shape": attn_times(MOE_TRAIN_CASE, iters=5, plain_iters=2,
+                                      bwd=True)}
 
 
 def phase_storage_kernel_times(tree: dict) -> dict:
@@ -1228,54 +1609,10 @@ def phase_train_kernel_times() -> dict:
     over the 11 gradient leaves one step compresses (bf16 in, bf16 out),
     each beside its bound, its plain twin and the nearest PyTorch call."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as qz
-    B, S, Hq, n_kv, D = TRAIN_CASE[:5]
+    at = attn_times(TRAIN_CASE, iters=5, plain_iters=2, bwd=True)
     gen = torch.Generator(device="cuda").manual_seed(15)
-    (q, k, v), (q5, k4, v4) = make_qkv(TRAIN_CASE, torch.bfloat16, gen)
-    do = torch.randn(q.shape, generator=gen, device="cuda") \
-        .to(torch.bfloat16)
-    do5 = do.reshape(B, S, n_kv, 1, D).permute(0, 2, 3, 1, 4)
-    out5, lse = fa.flash_fwd(q5, k4, v4, causal=True)
-    delta = (do5.float() * out5.float()).sum(-1)
-    fwd_ms = cuda_ms(lambda: fa.flash_fwd(q5, k4, v4, causal=True), iters=5)
-    with torch.no_grad():
-        sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True), iters=5)
-    bwd = lambda: fa.flash_bwd(q5, k4, v4, do5, lse, delta, causal=True)
-    pair_ms = cuda_ms(bwd, iters=5)
-    per = _profiled_ms(bwd, TC_KERNELS["flash_bwd"])
-    plain_ms = cuda_ms(lambda: fa.flash_bwd_reference(
-        q5, k4, v4, do5, lse, delta, causal=True), iters=2, warmup=1)
-    qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
-    doh = do.transpose(1, 2)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(
-        sdpa_out, (qh, kh, vh), doh, retain_graph=True), iters=5)
-    # causal triangle: 2 B H D S(S+1)/2 FLOP per product; dq does 3
-    # products, dk/dv 4, the pair only 5 (q.k and dO.v are shared)
-    prod = 2.0 * B * Hq * D * S * (S + 1) / 2
-    elt = q.element_size()
-    io = lambda n_in, n_out: (n_in + n_out) * q.numel() * elt \
-        + 2 * 4 * B * Hq * S                       # + lse, delta fp32
-
-    def bound(flops, nbytes):
-        t_ops = flops / BF16_FLOP_PER_S * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                     else "bytes")
-    dq_bound = bound(3 * prod, io(4, 1))
-    dkv_bound = bound(4 * prod, io(4, 2))
-    pair_bound = bound(5 * prod, io(4, 3))
-    # the forward: 2 products; q, k, v, out and the fp32 lse
-    fwd_bound = bound(2 * prod, io(3, 1) - 4 * B * Hq * S)
-    del q, k, v, do, q5, k4, v4, do5, out5, lse, delta, qh, kh, vh
-    del sdpa_out, doh
-    torch.cuda.empty_cache()
 
     cfg = get_arch(SLICE_ARCH)
     d, ff, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.padded_vocab()
@@ -1304,22 +1641,22 @@ def phase_train_kernel_times() -> dict:
     for t in (qt, dt):
         t["bound_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
         t["bound_by"] = "bytes"
-    return {"flash_fwd_train_shape_ms": fwd_ms,
-            "flash_fwd_train_shape_tflops_per_s": 2 * prod / (fwd_ms / 1e3)
-            / 1e12,
-            "flash_fwd_train_shape_bound_ms": fwd_bound[0],
-            "flash_fwd_train_shape_bound_by": fwd_bound[1],
-            "sdpa_fwd_train_shape_ms": sdpa_fwd_ms,
-            "flash_bwd_pair_ms": pair_ms,
-            "flash_bwd_pair_bound_ms": pair_bound[0],
-            "flash_bwd_dq": {"ms": per["flash_bwd_dq_tc_kernel"],
-                             "bound_ms": dq_bound[0],
-                             "bound_by": dq_bound[1]},
-            "flash_bwd_dkv": {"ms": per["flash_bwd_dkv_tc_kernel"],
-                              "bound_ms": dkv_bound[0],
-                              "bound_by": dkv_bound[1]},
-            "flash_bwd_plain_pair_ms": plain_ms,
-            "sdpa_backward_ms": library_ms,
+    return {"flash_fwd_train_shape_ms": at["ms"],
+            "flash_fwd_train_shape_tflops_per_s": at["tflops_per_s"],
+            "flash_fwd_train_shape_bound_ms": at["bound_ms"],
+            "flash_fwd_train_shape_bound_by": at["bound_by"],
+            "flash_fwd_train_shape_plain_ms": at["plain_ms"],
+            "sdpa_fwd_train_shape_ms": at["library_ms"],
+            "flash_bwd_pair_ms": at["pair_ms"],
+            "flash_bwd_pair_bound_ms": at["pair_bound_ms"],
+            "flash_bwd_dq": {"ms": at["dq_ms"],
+                             "bound_ms": at["dq_bound_ms"],
+                             "bound_by": at["dq_bound_by"]},
+            "flash_bwd_dkv": {"ms": at["dkv_ms"],
+                              "bound_ms": at["dkv_bound_ms"],
+                              "bound_by": at["dkv_bound_by"]},
+            "flash_bwd_plain_pair_ms": at["plain_pair_ms"],
+            "sdpa_backward_ms": at["library_pair_ms"],
             "quantize_per_step": qt, "dequantize_per_step": dt}
 
 
@@ -1349,6 +1686,11 @@ def main() -> int:
     print(json.dumps({"serve_offload": offload_run, "card": card}))
     train_run = phase_train()
     print(json.dumps({"train": train_run, "card": card}))
+    torch.cuda.empty_cache()
+    moe_serve_run = phase_moe_serve()
+    print(json.dumps({"moe_serve": moe_serve_run, "card": card}))
+    moe_train_run = phase_moe_train()
+    print(json.dumps({"moe_train": moe_train_run, "card": card}))
     ckpt_run = phase_ckpt_train()
     saved = ckpt_run.pop("copy")
     stripe_run = phase_stripe(saved)
@@ -1360,11 +1702,17 @@ def main() -> int:
     print(json.dumps({"kernel_times": times, "card": card}))
     tt = phase_train_kernel_times()
     print(json.dumps({"train_kernel_times": tt, "card": card}))
+    mt = phase_moe_kernel_times()
+    print(json.dumps({"moe_kernel_times": mt, "card": card}))
     print(json.dumps({"ckpt_train": {
         k: v for k, v in ckpt_run.items()
         if k in ("result", "run_s", "check_s", "launches", "timings",
                  "peak_mem_gb", "host_after")}, "card": card}))
-    tl = train_run["launches"]
+    tl = {k: v + moe_train_run["launches"][k]
+          for k, v in train_run["launches"].items()}
+    # the G = 16 shapes of the MoE slices, beside the bound and SDPA
+    g16 = lambda key: {f"{key}_moe_{shape}_shape": mt[f"{shape}_shape"][key]
+                       for shape in ("serve", "train")}
     bwd_plain = tt["flash_bwd_plain_pair_ms"]  # the twin computes the pair
     sdpa_bwd = tt["sdpa_backward_ms"]          # likewise
     qt, dt = tt["quantize_per_step"], tt["dequantize_per_step"]
@@ -1373,7 +1721,8 @@ def main() -> int:
         "name": "flash_fwd", "route": "cuda", "source": csrc + "flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:92",
         "launches": slice_run["flash_fwd_launches"] + tl["flash_fwd"]
-        + sum(n["flash_fwd"] for n in offload_run["launches"].values()),
+        + sum(n["flash_fwd"] for n in offload_run["launches"].values())
+        + sum(n["flash_fwd"] for n in moe_serve_run["launches"].values()),
         "max_abs_err": max(slice_err, fwd_train_err), "ms": times["ms"],
         "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"], "library_ms": times["library_ms"],
@@ -1381,20 +1730,26 @@ def main() -> int:
         "ms_train_shape": tt["flash_fwd_train_shape_ms"],
         "tflops_per_s_train_shape": tt["flash_fwd_train_shape_tflops_per_s"],
         "bound_ms_train_shape": tt["flash_fwd_train_shape_bound_ms"],
-        "library_ms_train_shape": tt["sdpa_fwd_train_shape_ms"]}, {
+        "library_ms_train_shape": tt["sdpa_fwd_train_shape_ms"],
+        **g16("ms"), **g16("bound_ms"), **g16("plain_ms"),
+        **g16("library_ms"), **g16("tflops_per_s")}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": csrc + "flash_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:222",
         "launches": tl["flash_bwd_dq"], "max_abs_err": bwd_err,
         "ms": tt["flash_bwd_dq"]["ms"], "plain_ms": bwd_plain,
         "bound_ms": tt["flash_bwd_dq"]["bound_ms"],
-        "bound_by": tt["flash_bwd_dq"]["bound_by"], "library_ms": sdpa_bwd}, {
+        "bound_by": tt["flash_bwd_dq"]["bound_by"], "library_ms": sdpa_bwd,
+        **g16("dq_ms"), **g16("dq_bound_ms"), **g16("pair_ms"),
+        **g16("plain_pair_ms"), **g16("library_pair_ms")}, {
         "name": "flash_bwd_dkv", "route": "cuda",
         "source": csrc + "flash_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:243",
         "launches": tl["flash_bwd_dkv"], "max_abs_err": bwd_err,
         "ms": tt["flash_bwd_dkv"]["ms"], "plain_ms": bwd_plain,
         "bound_ms": tt["flash_bwd_dkv"]["bound_ms"],
-        "bound_by": tt["flash_bwd_dkv"]["bound_by"], "library_ms": sdpa_bwd}, {
+        "bound_by": tt["flash_bwd_dkv"]["bound_by"], "library_ms": sdpa_bwd,
+        **g16("dkv_ms"), **g16("dkv_bound_ms"), **g16("pair_ms"),
+        **g16("plain_pair_ms"), **g16("library_pair_ms")}, {
         "name": "quantize", "route": "cuda", "source": csrc + "quantize.cu",
         "replaces": "src/repro/kernels/quantize.py:37",
         "launches": tl["quantize"],

@@ -2,9 +2,12 @@
 """Where the serving and training slices' time goes on the card.
 
     PYTHONPATH=src python3 scripts/profile_slice.py [--decode-steps 4]
+    PYTHONPATH=src python3 scripts/profile_slice.py \
+        --arch qwen3-moe-235b-a22b --serve-layers 8 --train-layers 2
 
-Builds the slices that chip_smoke.py drives (deepseek-7b at full width,
-bf16, random weights from a seeded generator, ``attn_impl="flash_pallas"``):
+Builds the slices that chip_smoke.py drives (an architecture at full
+width, deepseek-7b by default, bf16, random weights from a seeded
+generator, ``attn_impl="flash_pallas"``, its depth cut where asked):
 serving is B=4 prompts of 1024 tokens, one prefill and a few greedy decode
 steps; training is one ``make_train_step`` step (Adafactor, int8 gradient
 compression, remat) on B=2 x 4096 tokens.  Each phase is warmed up, timed
@@ -12,7 +15,12 @@ once without the profiler, then traced with ``torch.profiler`` (CPU and
 CUDA activities).  For each phase it prints one JSON line: the host-clock
 wall time with and without the profiler, the device's busy time (the union
 of kernel intervals) and idle share, launches, and device time by kernel
-category and by kernel name.  Needs a CUDA card.
+category and by kernel name.  For a MoE architecture each of ``moe_ffn``'s
+stages (router, dispatch, experts, combine) runs inside a named profiler
+range while the script runs, and the line adds the device time of the
+kernels launched in each range (the forward, and its recompute under
+remat) and of those launched by each autograd backward node.  Needs a CUDA
+card.
 """
 from __future__ import annotations
 
@@ -59,10 +67,53 @@ def busy_us(intervals) -> float:
     return total
 
 
+# moe_ffn's stages, each wrapped in a profiler range of the category's name
+MOE_STAGES = (("route", "router"), ("dispatch", "dispatch"),
+              ("expert_ffn", "experts"), ("combine", "combine"))
+RANGE = "moe."
+BACKWARD = "autograd::engine::evaluate_function: "
+
+
+def watch_moe_stages() -> None:
+    """Run each of ``moe_ffn``'s stages inside a named profiler range (the
+    model looks them up in its module at every call)."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import moe
+    for fn_name, cat in MOE_STAGES:
+        fn = getattr(moe, fn_name)
+
+        def ranged(*a, _fn=fn, _range=RANGE + cat, **kw):
+            with record_function(_range):
+                return _fn(*a, **kw)
+        setattr(moe, fn_name, ranged)
+
+
+def device_ms_by_range(prof) -> dict:
+    """Device ms of the kernels launched inside each MoE stage's range, and
+    of those each autograd backward node launched (outside the ranges)."""
+    from torch.autograd import DeviceType
+    out = defaultdict(float)
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        p = e
+        while p is not None and not p.name.startswith((RANGE, BACKWARD)):
+            p = p.cpu_parent
+        if p is None:
+            continue
+        key = p.name if p.name.startswith(RANGE) \
+            else "backward " + p.name[len(BACKWARD):]
+        out[key] += sum(k.duration for k in e.kernels) / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
 def summarize(phase: str, prof, wall_ms: float, plain_wall_ms: float,
               card: str) -> dict:
     from torch.autograd import DeviceType
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # kernels only: the device-side copies of the profiler ranges are not
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation and not e.name.startswith(RANGE)]
     if not kernels:
         raise SystemExit("profile_slice: the trace holds no device time")
     by_name, by_cat = defaultdict(float), defaultdict(float)
@@ -81,7 +132,8 @@ def summarize(phase: str, prof, wall_ms: float, plain_wall_ms: float,
             "device_ms_by_category": {k: v / 1e3 for k, v in
                                       sorted(by_cat.items(),
                                              key=lambda kv: -kv[1])},
-            "top_kernels_ms": [[n[:120], v / 1e3] for n, v in top]}
+            "top_kernels_ms": [[n[:120], v / 1e3] for n, v in top],
+            "device_ms_by_range": device_ms_by_range(prof)}
 
 
 def profile_serve(params, cfg, gen, decode_steps, timed, traced, card):
@@ -143,6 +195,11 @@ def profile_train(params, cfg, gen, timed, traced, card):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--decode-steps", type=int, default=4)
+    ap.add_argument("--arch", default="deepseek-7b")
+    ap.add_argument("--serve-layers", type=int, default=0,
+                    help="depth of the serving slice (0: the arch's own)")
+    ap.add_argument("--train-layers", type=int, default=0,
+                    help="depth of the training slice (0: the arch's own)")
     args = ap.parse_args()
 
     import torch
@@ -158,10 +215,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    cfg = dataclasses.replace(get_arch("deepseek-7b"),
-                              attn_impl="flash_pallas")
+    base = dataclasses.replace(get_arch(args.arch), attn_impl="flash_pallas")
+    serve_cfg, train_cfg = (
+        dataclasses.replace(base, n_layers=n or base.n_layers)
+        for n in (args.serve_layers, args.train_layers))
+    if base.family == "moe":
+        watch_moe_stages()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = init_model(gen, cfg, device="cuda")
+    params = init_model(gen, serve_cfg, device="cuda")
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -176,8 +237,15 @@ def main() -> int:
             out, wall_ms = timed(fn)
         return out, wall_ms, prof
 
-    profile_serve(params, cfg, gen, args.decode_steps, timed, traced, card)
-    profile_train(params, cfg, gen, timed, traced, card)
+    print(json.dumps({"arch": base.name, "serve_layers": serve_cfg.n_layers,
+                      "train_layers": train_cfg.n_layers, "card": card}))
+    profile_serve(params, serve_cfg, gen, args.decode_steps, timed, traced,
+                  card)
+    if train_cfg.n_layers != serve_cfg.n_layers:
+        del params
+        torch.cuda.empty_cache()
+        params = init_model(gen, train_cfg, device="cuda")
+    profile_train(params, train_cfg, gen, timed, traced, card)
     return 0
 
 

@@ -1,4 +1,5 @@
-"""Model zoo of the PyTorch port (dense decoder-only family so far)."""
+"""Model zoo of the PyTorch port: the dense and MoE decoder-only families
+(ssm, hybrid, encdec and vlm are not ported yet)."""
 from .model import (cache_spec, forward_decode, forward_prefill,
                     forward_train, init_cache, init_model, input_specs,
                     make_inputs, param_count, text_len)

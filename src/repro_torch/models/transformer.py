@@ -1,12 +1,13 @@
-"""Architecture assembly in torch, dense decoder-only path.
+"""Architecture assembly in torch: the dense and MoE decoder-only families.
 
 Counterpart of the JAX package's models/transformer.py.  Layer params are
 stacked with a leading ``L`` dim, as in JAX; ``lax.scan`` over the stack
 becomes a Python loop over ``params["blocks"][...][i]``, and the scan's
 per-block ``jax.checkpoint`` (``cfg.remat``) a per-layer
-``torch.utils.checkpoint``.  The families this port has not reached yet
-(moe, ssm, hybrid, encdec, vlm) raise ``NotImplementedError`` when a model
-is built for them.
+``torch.utils.checkpoint``.  A MoE block (qwen3-moe, arctic) is the dense
+block with ``moe.moe_ffn`` in place of the MLP; its aux loss is summed over
+the layers.  The families this port has not reached yet (ssm, hybrid,
+encdec, vlm) raise ``NotImplementedError`` when a model is built for them.
 
   forward_train(params, cfg, batch) -> (hidden, aux_loss)
 """
@@ -19,11 +20,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..tree import tree_map
 from . import layers as L
+from . import moe as M
 from .attention_flash import blockwise_attention
 
 Params = dict
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe")
 
 
 def _require_ported(cfg) -> None:
@@ -38,12 +40,17 @@ def _require_ported(cfg) -> None:
 # ======================================================================
 
 def _block_init(gen: torch.Generator, cfg, kind: str, tp_pad: int) -> Params:
-    if kind != "attn":
+    if kind not in ("attn", "moe"):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     dt = L._dtype(cfg)
     ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
-    return {"norm1": ones(), "attn": L.init_attention(gen, cfg, tp_pad),
-            "norm2": ones(), "mlp": L.init_mlp(gen, cfg)}
+    p = {"norm1": ones(), "attn": L.init_attention(gen, cfg, tp_pad),
+         "norm2": ones()}
+    if kind == "moe":
+        p["moe"] = M.init_moe(gen, cfg)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg)
+    return p
 
 
 def _stack(gen: torch.Generator, cfg, kind: str, n: int,
@@ -145,10 +152,12 @@ def _apply_attn_block(p: Params, x, cfg, positions, *, n_heads, window=0,
 
 
 def _apply_mlp_or_moe(p: Params, x, cfg, n_groups=1):
-    """Dense MLP only in this port; returns (x + mlp(norm(x)), aux=0)."""
-    if "moe" in p:
-        raise NotImplementedError("MoE blocks are not ported yet")
+    """-> (x + ffn(norm(x)), aux): the MoE layer's load-balance loss, or 0
+    after a dense MLP."""
     h = L.rms_norm(x, p["norm2"])
+    if "moe" in p:
+        y, aux = M.moe_ffn(p["moe"], h, cfg, n_groups=n_groups)
+        return x + y, aux
     y = L.apply_mlp(p["mlp"], h, cfg)
     return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
 

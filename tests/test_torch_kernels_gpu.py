@@ -31,6 +31,8 @@ CASES = [
     (1, 70, 4, 2, 36, True, 0, 0),       # D % 8 != 0: 2-byte loads, no cp.async
     (1, 257, 4, 2, 256, False, 64, 0),   # widest D, window without causal
     (1, 300, 4, 1, 96, True, 50, 20),    # window and prefix together
+    (4, 1024, 64, 4, 128, True, 0, 0),   # qwen3-moe serving: GQA, G = 16
+    (2, 4096, 64, 4, 128, True, 0, 0),   # qwen3-moe training: G = 16
 ]
 # fp32: the reference tests' 3e-4 (the scalar fp32 kernel).  bf16: the
 # tensor-core kernel sums exact products of the bf16 inputs in fp32, rounds
@@ -321,6 +323,37 @@ def test_train_step_launches_every_kernel(cuda):
     assert abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) < 1e-4
     assert abs(float(m_gpu["grad_norm"]) / float(m_cpu["grad_norm"])
                - 1) < 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_on_the_card_matches_cpu(cuda, dtype):
+    """One qwen3-moe layer's ``moe_ffn`` at smoke width, with drops (cf =
+    1.0) and over 2 token groups: the card against the CPU from the same
+    params and input.  fp32: summation order only (1e-5 of the largest
+    |value|); bf16: the products round differently (1e-2).  The gather
+    dispatch and combine have no atomics: two runs on the card are equal
+    bit for bit."""
+    from repro_torch.configs import ARCHS, smoke_variant
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(smoke_variant(ARCHS["qwen3-moe-235b-a22b"]),
+                              capacity_factor=1.0,
+                              param_dtype=str(dtype).split(".")[1])
+    params = moe.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = (torch.randn((4, 32, cfg.d_model),
+                     generator=torch.Generator().manual_seed(1)) * 0.3) \
+        .to(dtype)
+    y_cpu, aux_cpu = moe.moe_ffn(params, x, cfg, n_groups=2)
+    to = lambda t: {k: to(v) for k, v in t.items()} \
+        if isinstance(t, dict) else t.to(cuda)
+    y, aux = moe.moe_ffn(to(params), x.to(cuda), cfg, n_groups=2)
+    y2, _ = moe.moe_ffn(to(params), x.to(cuda), cfg, n_groups=2)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    scale = float(y_cpu.float().abs().max())
+    torch.testing.assert_close(y.cpu().float(), y_cpu.float(), rtol=tol,
+                               atol=tol * scale)
+    torch.testing.assert_close(aux.cpu(), aux_cpu, rtol=1e-5, atol=1e-6)
 
 
 # ------------------------- checksum, stripe pack -------------------------
