@@ -14,7 +14,8 @@ Phases, each fatal on failure:
 2. hold each kernel against its plain torch version on the card: flash
    attention forward and backward in fp32 and bf16 at the reference tests'
    cases, a ragged S, D=256 and the slices' shapes (the MoE slices' GQA
-   with G = 16 query heads a KV head among them), the backward fed the
+   with G = 16 query heads a KV head and the hybrid's MQA with G = 16,
+   D = 256 and window 2048 among them), the backward fed the
    forward kernel's own ``out`` and ``lse``; quantize / dequantize
    bit for bit on a layer-sized gradient, an all-zero group and .5 ties;
    checksum and stripe pack / unpack bit for bit, the checksum also
@@ -51,6 +52,19 @@ Phases, each fatal on failure:
    prefill of S+1 at the no-drop capacity factor, one layer's ``moe_ffn``
    against the explicit per-token mixture) and training (2 layers; the
    training slice's checks, the aux loss finite and positive);
+   then the recurrent families at full width: mamba2-370m (Mamba2 SSD, 48
+   layers, no attention) serving (the serving slice's prompts and steps,
+   no kernel launch, decode at S against a prefill of S+1, one layer's
+   chunked SSD against its sequential recurrence in fp32) and training
+   (the training slice's settings, exact quantize / dequantize counts, one
+   layer's fp32 gradients on the card against the host's), and
+   recurrentgemma-9b (Griffin: RG-LRU layers and local MQA attention, G =
+   16, D = 256, window 2048) serving at full depth (exactly one
+   ``flash_fwd`` a local-attention layer a prefill and none in decode,
+   kernel vs blockwise hidden state, the decode identity, one rec layer's
+   log-depth scan against its sequential recurrence in fp32) and training
+   cut to 20 layers (the training slice's checks, the window biting at
+   S = 4096);
 5. drive the checkpointed-training slice through the port's driver
    (``launch.train.run``): deepseek-7b at full width cut to 2 layers,
    the training slice's settings, async checkpoints every 3 steps into the
@@ -64,8 +78,9 @@ Phases, each fatal on failure:
    checkpoint through ``ops.shard_pack`` / ``ops.shard_unpack``
    (16 targets, 64 KiB cells), with exact launch counts;
 6. time the slices and each kernel against its bound, its plain version and
-   the nearest PyTorch call, the flash kernels also at the MoE slices'
-   shapes.
+   the nearest PyTorch call, the flash kernels also at the MoE and hybrid
+   slices' shapes (SDPA with an explicit boolean window mask there, and
+   the backend it takes).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the kernels' JSON record, and the card's line precedes that.
@@ -131,9 +146,49 @@ MOE_MIX_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 # loss and grad norm are held free and replayed, each leaf replayed (the
 # plain path takes the kernel path's choices), the free leaves reported.
 MOE_CHECK_LAYERS = 2
+# The recurrent families.  mamba2-370m (Mamba2 SSD: 48 layers, d 1024, 32
+# SSD heads of 64 over a state of 128, chunk 256, vocab 50280, bf16) at
+# full width and depth, serving and training: it has no attention layer,
+# and its training step runs the int8 compression kernels.
+# recurrentgemma-9b (Griffin: 38 layers, d 4096, RG-LRU width 4096, a
+# local MQA layer every third, 16 q heads over 1 KV head of 256, window
+# 2048, ff 12288, vocab 256000, bf16) serves at full depth (20.89 GB of
+# params) and trains cut to 20 layers: 6 (rec, rec, local_attn)
+# super-blocks and 2 leftover rec layers, 13.01 GB of params; at full
+# depth the params, their gradients and Adafactor's bf16 moment alone take
+# 62.7 GB.
+SSM_ARCH = "mamba2-370m"
+HYBRID_ARCH = "recurrentgemma-9b"
+HYBRID_TRAIN_LAYERS = 20
+HYBRID_SERVE_CASE = (SLICE_BATCH, SLICE_PROMPT, 16, 1, 256, True, 2048, 0)
+HYBRID_TRAIN_CASE = (TRAIN_BATCH, TRAIN_SEQ, 16, 1, 256, True, 2048, 0)
+# In bf16 the two paths of an end-to-end serving comparison round in
+# other places, and the recurrent state and the residual stream carry
+# each layer's difference into the next: on an H100 80GB HBM3 at 700 W,
+# mamba2's decode identity read 0.098 over 48 layers (fp32: 6.6e-5) and
+# recurrentgemma's kernel-vs-blockwise hidden state 0.036 (fp32: 8.6e-6,
+# each layer's kernel output on its own inputs 2.7e-3).  So those two are
+# reported in bf16 and held in fp32 at full width and depth
+# (``fp32_serving_checks``), at the limits above; recurrentgemma's bf16
+# decode identity (0.043) is held as well.
+# One SSM layer at full width in fp32: the chunked ssd_forward against
+# the sequential ssd_decode_step over SLICE_PROMPT steps, at the
+# reference's chunked-vs-sequential tolerance (tests/test_models.py).
+SSD_SEQ_TOL = 3e-3
+# One rec layer at full width in fp32: the log-depth scan against the
+# sequential rglru_decode_step over SLICE_PROMPT steps, relative norm of
+# the difference.  Both compute in fp32; the scan reassociates the
+# recurrence's products and sums (~1e-7 relative a step, over at most
+# log2(S) = 10 levels), and the gate GEMMs run at other row counts.
+RGLRU_SCAN_REL_TOL = 1e-4
+# One SSM layer's parameter gradients at full width in fp32 on the card
+# against the same computation on the host CPU from the same numbers
+# (summation order only), relative norm of the difference per leaf.
+SSM_GRAD_REL_TOL = 1e-4
 
 # (B, S, Hq, n_kv, D, causal, window, prefix): the reference tests' cases,
-# a ragged S, the MoE serving shape (G = 16) and the slice's shape (last).
+# a ragged S, the MoE serving shape (G = 16), the hybrid's (MQA, G = 16,
+# D = 256, window 2048) and the slice's shape (last).
 KERNEL_CASES = [
     (2, 64, 4, 2, 128, True, 0, 0),
     (2, 64, 4, 2, 80, True, 0, 0),
@@ -142,6 +197,7 @@ KERNEL_CASES = [
     (1, 64, 4, 4, 128, False, 0, 0),
     (2, 1000, 4, 2, 128, True, 0, 0),
     MOE_SERVE_CASE,
+    HYBRID_SERVE_CASE,
     (SLICE_BATCH, SLICE_PROMPT, 32, 32, 128, True, 0, 0),
 ]
 # fp32: the reference tests' 3e-4.  bf16 inputs: the tensor-core kernel
@@ -158,7 +214,8 @@ TOL = {"float32": {"out": 3e-4, "lse": 3e-4},
 # relative plus 1e-2 of its largest |value| (sums over up to 4096 keys
 # cancel, so single elements can be far below the tensor's scale).
 BWD_CASES = KERNEL_CASES[:6] + [(1, 333, 6, 3, 256, True, 100, 0),
-                                MOE_SERVE_CASE, TRAIN_CASE, MOE_TRAIN_CASE]
+                                MOE_SERVE_CASE, HYBRID_SERVE_CASE, TRAIN_CASE,
+                                MOE_TRAIN_CASE, HYBRID_TRAIN_CASE]
 GRAD_TOL = {"float32": (4e-3, 4e-3), "bfloat16": (1e-2, 1e-2)}
 # The elementwise limits above are loose for the late rows of a causal
 # pass, whose values are one to two orders of magnitude below the first
@@ -353,7 +410,8 @@ def phase_build() -> None:
 
 def phase_kernels() -> float:
     """Kernel vs plain version on the card; returns the largest bf16
-    |out error| at the serving slices' shapes (deepseek-7b and qwen3-moe)."""
+    |out error| at the serving slices' shapes (deepseek-7b, qwen3-moe and
+    recurrentgemma-9b)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -374,8 +432,8 @@ def phase_kernels() -> float:
             if not r["ok"]:
                 fail(f"flash_fwd disagrees with its plain version: {case} "
                      f"{dtype}")
-            if case in (KERNEL_CASES[-1], MOE_SERVE_CASE) \
-                    and dtype == torch.bfloat16:
+            if case in (KERNEL_CASES[-1], MOE_SERVE_CASE,
+                        HYBRID_SERVE_CASE) and dtype == torch.bfloat16:
                 slice_err = max(slice_err, r["max_abs_err_out"])
     # a negative scale at the serving shape: the bf16 kernel runs it on a
     # negated q tile with |scale|
@@ -399,10 +457,10 @@ def phase_bwd_kernels() -> tuple[float, float]:
     """The forward kernel, then the backward kernels fed its own ``out``
     and ``lse`` as the training step feeds them, each against its plain
     version on the card; returns the largest bf16 |error| of ``out`` and
-    over dq, dk and dv at the training slices' shapes (deepseek-7b and
-    qwen3-moe).  Runs before any model is loaded: at the qwen3-moe shape
-    the plain versions hold several 8.6 GB (B, n_kv, G, S, S) fp32
-    tensors."""
+    over dq, dk and dv at the training slices' shapes (deepseek-7b,
+    qwen3-moe and recurrentgemma-9b).  Runs before any model is loaded:
+    at the qwen3-moe shape the plain versions hold several 8.6 GB
+    (B, n_kv, G, S, S) fp32 tensors."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -451,7 +509,7 @@ def phase_bwd_kernels() -> tuple[float, float]:
             if not ok:
                 fail(f"flash_bwd disagrees with its plain version: {case} "
                      f"{dtype}")
-            if case in (TRAIN_CASE, MOE_TRAIN_CASE) \
+            if case in (TRAIN_CASE, MOE_TRAIN_CASE, HYBRID_TRAIN_CASE) \
                     and dtype == torch.bfloat16:
                 fwd_err = max(fwd_err, fwd["max_abs_err_out"])
                 bwd_err = max(bwd_err, *errs)
@@ -574,6 +632,13 @@ def phase_storage_kernels(device="cuda") -> dict:
     return errs
 
 
+def attn_layers(cfg) -> int:
+    """The attention layers of an architecture: each launches ``flash_fwd``
+    once a prefill under ``flash_pallas``."""
+    from repro_torch.models.transformer import block_kinds
+    return sum(k != "ssm" and k != "rec" for k in block_kinds(cfg))
+
+
 def serve_main_path(cfg) -> tuple[dict, dict]:
     """A serving slice at full width through the port's entry points:
     params from a seeded generator on the card, B=SLICE_BATCH prompts of
@@ -581,7 +646,7 @@ def serve_main_path(cfg) -> tuple[dict, dict]:
     SLICE_DECODE_STEPS greedy ``make_decode_step`` steps, after a warm-up.
     Every launch counter is set to 0 just before the prefill and before
     the decode steps and read just after each: ``flash_fwd`` must run once
-    a layer in the prefill and nothing else anywhere.  The logits must be
+    an attention layer in the prefill and nothing else anywhere.  The logits must be
     finite and the tokens in the vocabulary.  Returns the state the
     phase's checks go on from (params, prompts, steps, the first greedy
     token, the first decode step's logits, the last token and the cache)
@@ -631,7 +696,7 @@ def serve_main_path(cfg) -> tuple[dict, dict]:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     want = {part: {n: 0 for n in c} for part, c in launches.items()}
-    want["prefill"]["flash_fwd"] = cfg.n_layers
+    want["prefill"]["flash_fwd"] = attn_layers(cfg)
     if launches != want:
         fail(f"{cfg.name} serving launches {launches}, want {want}")
     gen_tokens = torch.cat(generated, dim=1)
@@ -659,22 +724,18 @@ def serve_main_path(cfg) -> tuple[dict, dict]:
         "peak_mem_gb": peak_gb, "launches": launches}
 
 
-def phase_slice() -> dict:
-    """The serving slice at full width through the port's entry points
-    (``serve_main_path``), then the kernel path's last-token hidden state
-    against the plain blockwise path's, and decode at S against a prefill
-    of S+1."""
+def hold(what: str, reading: float, limit: float) -> None:
+    """Fail unless ``reading`` is finite and within ``limit``."""
+    if not math.isfinite(reading) or reading > limit:
+        fail(f"{what}: {reading} (limit {limit})")
+
+
+def hidden_vs_blockwise(params, cfg, prompts) -> float:
+    """The kernel path's last-token hidden state against the plain
+    blockwise path's: the relative norm error."""
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.models import forward_prefill
-
-    cfg = dataclasses.replace(get_arch(SLICE_ARCH), attn_impl="flash_pallas")
-    st, r = serve_main_path(cfg)
-    params, prompts = st["params"], st["prompts"]
-    del st["cache"]
     batch, pad_to = {"tokens": prompts}, SLICE_PROMPT + SLICE_PAD
-
-    # kernel path vs plain blockwise path: last-token hidden state
     with torch.no_grad():
         h_kernel, c = forward_prefill(params, cfg, batch, pad_to=pad_to)
         h_kernel = h_kernel[:, -1].float()
@@ -684,27 +745,246 @@ def phase_slice() -> dict:
             pad_to=pad_to)
         h_plain = h_plain[:, -1].float()
         del c
-    hidden_rel = rel_err(h_kernel, h_plain)
-    if not math.isfinite(hidden_rel) or hidden_rel > HIDDEN_REL_TOL:
-        fail(f"kernel-path hidden state vs blockwise: rel err {hidden_rel}")
+    return rel_err(h_kernel, h_plain)
 
-    # prefill-then-decode identity: decode at position S == prefill of S+1
-    full_logits, c = st["prefill"](params, {"tokens": torch.cat(
-        [prompts, st["tok0"]], dim=1)})
+
+def decode_vs_prefill(st: dict) -> dict:
+    """The prefill-then-decode identity on ``serve_main_path``'s state:
+    the first decode step's logits (at position S) against the last row
+    of a prefill of S+1 tokens, the relative norm error and the greedy
+    tokens' agreement."""
+    import torch
+    full_logits, c = st["prefill"](st["params"], {"tokens": torch.cat(
+        [st["prompts"], st["tok0"]], dim=1)})
     del c
     decode0_logits = st["decode0_logits"]
-    decode_rel = rel_err(decode0_logits[:, -1], full_logits[:, -1])
-    argmax_agree = float((_greedy(decode0_logits) == _greedy(full_logits))
-                         .float().mean())
-    if not math.isfinite(decode_rel) or decode_rel > DECODE_REL_TOL:
-        fail(f"decode at S vs prefill of S+1: rel err {decode_rel}")
+    return {"rel_err": rel_err(decode0_logits[:, -1], full_logits[:, -1]),
+            "argmax_agree": float((_greedy(decode0_logits)
+                                   == _greedy(full_logits)).float().mean())}
+
+
+def phase_slice() -> dict:
+    """The serving slice at full width through the port's entry points
+    (``serve_main_path``), then the kernel path's last-token hidden state
+    against the plain blockwise path's, and decode at S against a prefill
+    of S+1."""
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch(SLICE_ARCH), attn_impl="flash_pallas")
+    st, r = serve_main_path(cfg)
+    del st["cache"]
+    hidden_rel = hidden_vs_blockwise(st["params"], cfg, st["prompts"])
+    hold("kernel-path hidden state vs blockwise", hidden_rel, HIDDEN_REL_TOL)
+    ident = decode_vs_prefill(st)
+    hold("decode at S vs prefill of S+1", ident["rel_err"], DECODE_REL_TOL)
     r.update({"flash_fwd_launches": sum(
                   c["flash_fwd"] for c in r["launches"].values()),
               "hidden_rel_err_vs_blockwise": hidden_rel,
               "hidden_rel_tol": HIDDEN_REL_TOL,
-              "decode_vs_prefill_rel_err": decode_rel,
+              "decode_vs_prefill_rel_err": ident["rel_err"],
               "decode_rel_tol": DECODE_REL_TOL,
-              "decode_vs_prefill_argmax_agree": argmax_agree})
+              "decode_vs_prefill_argmax_agree": ident["argmax_agree"]})
+    return r
+
+
+def ssd_chunked_vs_sequential(lp: dict, cfg, gen) -> dict:
+    """One SSM layer at full width in fp32 (the bf16 layer's params
+    widened): ``ssd_forward``'s chunks against SLICE_PROMPT sequential
+    ``ssd_decode_step`` steps from a zero state, outputs and final state,
+    at SSD_SEQ_TOL (as tests/test_models.py holds them)."""
+    import torch
+    from repro_torch.models import ssm
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    p32 = {n: w.float() for n, w in lp.items()}
+    B, S = SLICE_BATCH, SLICE_PROMPT
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+    with torch.no_grad():
+        y, final, tail = ssm.ssd_forward(p32, x, cfg32)
+        state = torch.zeros_like(final)
+        conv = torch.zeros_like(tail)
+        ys = []
+        for t in range(S):
+            y_t, state, conv = ssm.ssd_decode_step(p32, x[:, t:t + 1],
+                                                   cfg32, state, conv)
+            ys.append(y_t)
+        y_seq = torch.cat(ys, dim=1)
+    r = {"steps": S, "chunk": ssm.chunk_len(S, cfg.ssm_chunk),
+         "max_abs_err_y": float((y - y_seq).abs().max()),
+         "max_abs_err_state": float((final - state).abs().max()),
+         "rel_err_y": rel_err(y, y_seq), "y_abs_max": float(y.abs().max())}
+    r["ok"] = (torch.allclose(y, y_seq, rtol=SSD_SEQ_TOL, atol=SSD_SEQ_TOL)
+               and torch.allclose(final, state, rtol=SSD_SEQ_TOL,
+                                  atol=SSD_SEQ_TOL))
+    return r
+
+
+def rglru_scan_vs_sequential(lp: dict, cfg, gen) -> dict:
+    """One rec layer at full width in fp32 (the bf16 layer's params
+    widened): ``rglru_block``'s log-depth scan against SLICE_PROMPT
+    sequential ``rglru_decode_step`` steps from a zero state, at
+    RGLRU_SCAN_REL_TOL."""
+    import torch
+    from repro_torch.models import rglru
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    p32 = {n: w.float() for n, w in lp.items()}
+    B, S = SLICE_BATCH, SLICE_PROMPT
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+    with torch.no_grad():
+        y, h, tail = rglru.rglru_block(p32, x, cfg32)
+        state = torch.zeros_like(h)
+        conv = torch.zeros_like(tail)
+        ys = []
+        for t in range(S):
+            y_t, state, conv = rglru.rglru_decode_step(p32, x[:, t:t + 1],
+                                                       cfg32, state, conv)
+            ys.append(y_t)
+        y_seq = torch.cat(ys, dim=1)
+    r = {"steps": S, "rel_err_y": rel_err(y, y_seq),
+         "rel_err_state": rel_err(h, state),
+         "max_abs_err_y": float((y - y_seq).abs().max())}
+    r["ok"] = max(r["rel_err_y"], r["rel_err_state"]) <= RGLRU_SCAN_REL_TOL
+    return r
+
+
+def attention_replayed(params, cfg, prompts) -> list:
+    """A bf16 prefill through the kernel path with each attention layer's
+    kernel output held against the blockwise attention of the same q, k
+    and v (the kernel path's own activations at full width): the relative
+    norm error of each layer, free of the differences earlier layers
+    carry into the end-to-end comparison."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward_prefill
+    from repro_torch.models.attention_flash import blockwise_attention
+    kernel, errs = ops.flash_attention, []
+
+    def replayed(q, k, v, n_kv, causal, window, prefix, bq, bk):
+        out = kernel(q, k, v, n_kv, causal, window, prefix, bq, bk)
+        errs.append(rel_err(out, blockwise_attention(
+            q, k, v, n_kv, causal=causal, window=window, prefix=prefix,
+            bq=bq, bk=bk)))
+        return out
+    ops.flash_attention = replayed
+    try:
+        with torch.no_grad():
+            forward_prefill(params, cfg, {"tokens": prompts},
+                            pad_to=SLICE_PROMPT + SLICE_PAD)
+    finally:
+        ops.flash_attention = kernel
+    return errs
+
+
+def fp32_serving_checks(cfg, prompts) -> dict:
+    """A recurrent family's serving identities held in fp32 at full width
+    and depth, where bf16 roundings, carried through the recurrent state
+    and residual stream of every layer, grow past the limits (PERF.md):
+    the params drawn again from the serving seed in fp32; decode at S
+    against a prefill of S+1 at DECODE_REL_TOL; with attention layers, the
+    kernel path's hidden state (the fp32 kernel) against the blockwise
+    path's at HIDDEN_REL_TOL."""
+    import torch
+    from repro_torch.models import init_model
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_model(gen, cfg32, device="cuda")
+    S = prompts.shape[1]
+    prefill = make_prefill_step(cfg32, pad_to=S + SLICE_PAD, device="cuda")
+    logits, cache = prefill(params, {"tokens": prompts})
+    tok0 = _greedy(logits)
+    _, decode0_logits, cache = make_decode_step(cfg32, device="cuda")(
+        params, cache, tok0, S)
+    del cache
+    r = {"dtype": cfg32.param_dtype, "layers": cfg.n_layers,
+         "decode_vs_prefill": decode_vs_prefill({
+             "params": params, "prompts": prompts, "prefill": prefill,
+             "tok0": tok0, "decode0_logits": decode0_logits})}
+    hold(f"{cfg.name} fp32 decode at S vs prefill of S+1",
+         r["decode_vs_prefill"]["rel_err"], DECODE_REL_TOL)
+    if attn_layers(cfg):
+        r["hidden_rel_err_vs_blockwise"] = hidden_vs_blockwise(
+            params, cfg32, prompts)
+        hold(f"{cfg.name} fp32 kernel-path hidden state vs blockwise",
+             r["hidden_rel_err_vs_blockwise"], HIDDEN_REL_TOL)
+    del params
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_ssm_serve() -> dict:
+    """The SSM serving slice, mamba2-370m at full width and depth, through
+    the port's entry points (``serve_main_path``: no kernel launch
+    anywhere, there is no attention layer); decode at S against a prefill
+    of S+1, reported in bf16 and held in fp32; one layer's chunked SSD
+    against its sequential recurrence."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import layer
+    cfg = get_arch(SSM_ARCH)
+    st, r = serve_main_path(cfg)
+    r["cache_bytes"] = sum(c.numel() * c.element_size()
+                           for c in st.pop("cache").values())
+    r["decode_vs_prefill_bf16"] = decode_vs_prefill(st)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    seq = ssd_chunked_vs_sequential(layer(st["params"]["blocks"], 0)["ssm"],
+                                    cfg, gen)
+    r["ssd_chunked_vs_sequential"] = seq
+    prompts = st["prompts"]
+    del st
+    torch.cuda.empty_cache()
+    if not seq["ok"]:
+        fail(f"ssd_forward vs the sequential recurrence: {seq}")
+    r["fp32"] = fp32_serving_checks(cfg, prompts)
+    r["decode_rel_tol"] = DECODE_REL_TOL
+    return r
+
+
+def phase_hybrid_serve() -> dict:
+    """The hybrid serving slice, recurrentgemma-9b at full width and depth
+    with ``flash_pallas``, through the port's entry points
+    (``serve_main_path``: ``flash_fwd`` once a local-attention layer in the
+    prefill, never in decode); each layer's kernel output against the
+    blockwise attention of its own q, k, v in bf16; decode at S against a
+    prefill of S+1 (S + steps stay inside the window, where the ring
+    cache is exact), held in bf16 and in fp32; the kernel path's hidden
+    state against the blockwise path's, reported in bf16 and held in
+    fp32; one rec layer's log-depth scan against its sequential
+    recurrence."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import layer
+    cfg = dataclasses.replace(get_arch(HYBRID_ARCH), attn_impl="flash_pallas")
+    if SLICE_PROMPT + SLICE_DECODE_STEPS > cfg.local_window:
+        fail("the hybrid's serving run must stay inside its window")
+    st, r = serve_main_path(cfg)
+    r["cache_bytes"] = sum(c.numel() * c.element_size()
+                           for c in st.pop("cache").values())
+    params, prompts = st["params"], st["prompts"]
+    r["flash_fwd_launches"] = sum(c["flash_fwd"]
+                                  for c in r["launches"].values())
+    replayed = attention_replayed(params, cfg, prompts)
+    r["attention_replayed_rel_err"] = replayed
+    r["attention_replayed_rel_tol"] = BLOCK_REL_TOL["bfloat16"]
+    r["hidden_rel_err_vs_blockwise_bf16"] = hidden_vs_blockwise(
+        params, cfg, prompts)
+    r["decode_vs_prefill_bf16"] = decode_vs_prefill(st)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    scan = rglru_scan_vs_sequential(layer(params["rec_blocks"], 0)["rec"],
+                                    cfg, gen)
+    r["rglru_scan_vs_sequential"] = scan
+    del st, params
+    torch.cuda.empty_cache()
+    if len(replayed) != attn_layers(cfg):
+        fail(f"{cfg.name}: {len(replayed)} attention layers replayed")
+    for i, e in enumerate(replayed):
+        hold(f"{cfg.name} layer {i}'s kernel output vs blockwise on its "
+             "own inputs", e, BLOCK_REL_TOL["bfloat16"])
+    hold(f"{cfg.name} decode at S vs prefill of S+1",
+         r["decode_vs_prefill_bf16"]["rel_err"], DECODE_REL_TOL)
+    if not scan["ok"]:
+        fail(f"the RG-LRU scan vs the sequential recurrence: {scan}")
+    r["fp32"] = fp32_serving_checks(cfg, prompts)
+    r.update(hidden_rel_tol=HIDDEN_REL_TOL, decode_rel_tol=DECODE_REL_TOL)
     return r
 
 
@@ -820,7 +1100,7 @@ def phase_serve_offload() -> dict:
     torch.cuda.empty_cache()
 
     want = {"prefill": {k: 0 for k in launches["prefill"]}}
-    want["prefill"]["flash_fwd"] = cfg.n_layers
+    want["prefill"]["flash_fwd"] = attn_layers(cfg)
     want["offload"] = {k: 0 for k in launches["offload"]}
     want["offload"]["checksum"] = len(leaf_nbytes)
     want["restore"] = dict(want["offload"])
@@ -1281,45 +1561,42 @@ def train_model_flops(cfg, n_params: int) -> float:
     """Model FLOPs of one training step (no recompute): 6 per matmul weight
     a token passes through (the token-embedding lookup is no product; of a
     MoE layer's experts only the k routed ones, never all E), plus the
-    causal attention products, 4 B H D S(S+1)/2 per layer forward, x3 with
-    the backward."""
+    sequence-mixing products, x3 with the backward: attention 4 B H D a
+    (query, key) pair an attention layer forward, over the S(S+1)/2 causal
+    pairs or, under a window W (the hybrid's local layers), W(W+1)/2 +
+    (S-W) W; the SSD's intra-chunk products 2 B S Q (N + H P) and its
+    chunk-state and inter-chunk products 2 x 2 B S H N P a layer.
+    ``n_params`` is counted from the param tree: ``ModelConfig.n_params()``
+    leaves out every family's untied head and the RG-LRU's w_r and w_i
+    (recurrentgemma-9b: 1.92e9 of its 10.44e9)."""
+    from repro_torch.models.ssm import chunk_len
     B, S = TRAIN_BATCH, TRAIN_SEQ
     active = n_params - cfg.padded_vocab() * cfg.d_model
     if cfg.family == "moe":
         active -= cfg.n_layers * (cfg.n_experts - cfg.experts_per_token) \
             * 3 * cfg.d_model * cfg.d_ff
     dense = 6.0 * active * B * S
-    attn = 3.0 * cfg.n_layers * 4.0 * B * cfg.n_heads * cfg.head_dim \
-        * S * (S + 1) / 2
-    return dense + attn
+    if cfg.family == "ssm":
+        H, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim
+        Q = chunk_len(S, cfg.ssm_chunk)
+        mix = cfg.n_layers * (2.0 * B * S * Q * (N + H * P)
+                              + 2 * 2.0 * B * S * H * N * P)
+    else:
+        W = cfg.local_window if cfg.family == "hybrid" else cfg.swa_window
+        pairs = S * (S + 1) / 2 if not W or S <= W \
+            else W * (W + 1) / 2 + (S - W) * W
+        mix = attn_layers(cfg) * 4.0 * B * cfg.n_heads * cfg.head_dim * pairs
+    return dense + 3.0 * mix
 
 
-def run_train(cfg) -> dict:
-    """A training slice at full width through ``make_train_step``: the
-    kernel path's loss, grad norm and per-leaf gradients against the plain
-    path's from the same params and batch, then one warm-up step and
-    TRAIN_TIMED_STEPS timed ones with every launch counter set to 0 just
-    before and read just after (exact counts), and the loss must fall."""
-    import torch
-    from repro_torch.kernels.quantize import BLOCK_GROUPS, GROUP
-    from repro_torch.models import init_model, param_count
-    from repro_torch.train import (global_norm, loss_and_grads,
-                                   make_eval_step, make_train_step, opt_init)
-    from repro_torch.tree import tree_items, tree_leaves
-
-    B, S = TRAIN_BATCH, TRAIN_SEQ
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = init_model(gen, cfg, device="cuda")
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
-                                     generator=gen, device="cuda",
-                                     dtype=torch.int32)}
-    n_params = param_count(params)
-    # leaves the int8 compression quantizes (smaller ones pass as they are)
-    n_big = sum(1 for p in tree_leaves(params)
-                if p.numel() >= GROUP * BLOCK_GROUPS)
-
-    # kernel path vs plain path, same params and batch.  The kernel path's
-    # grads wait on the host while the plain path runs.
+def kernel_vs_plain(params, cfg, batch) -> dict:
+    """The kernel path's loss, grad norm and per-leaf gradients against the
+    plain path's (``attn_impl="flash"``) from the same params and batch,
+    held at TRAIN_LOSS_REL_TOL, TRAIN_GNORM_REL_TOL and TRAIN_LEAF_REL_TOL
+    (MoE: each leaf with the kernel path's routing replayed).  The kernel
+    path's grads wait on the host while the plain path runs."""
+    from repro_torch.train import global_norm, loss_and_grads
+    from repro_torch.tree import tree_items
     (loss_k, aux_k, grads), experts = _watch_routes(
         lambda: loss_and_grads(params, cfg, batch), lambda r: r.expert)
     gnorm_k = float(global_norm(grads))
@@ -1364,6 +1641,36 @@ def run_train(cfg) -> dict:
                     for v in held["leaf_rel"].values())):
         fail(f"{cfg.name} training kernel path vs plain path out of its "
              "limits")
+    return cmp
+
+
+
+def run_train(cfg) -> dict:
+    """A training slice at full width through ``make_train_step``: the
+    kernel path's loss, grad norm and per-leaf gradients against the plain
+    path's from the same params and batch (where the model has attention
+    layers), then one warm-up step and TRAIN_TIMED_STEPS timed ones with
+    every launch counter set to 0 just before and read just after (exact
+    counts), and the loss must fall."""
+    import torch
+    from repro_torch.kernels.quantize import BLOCK_GROUPS, GROUP
+    from repro_torch.models import init_model, param_count
+    from repro_torch.train import make_eval_step, make_train_step, opt_init
+    from repro_torch.tree import tree_leaves
+
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_model(gen, cfg, device="cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)}
+    n_params = param_count(params)
+    # leaves the int8 compression quantizes (smaller ones pass as they are)
+    n_big = sum(1 for p in tree_leaves(params)
+                if p.numel() >= GROUP * BLOCK_GROUPS)
+
+    n_attn = attn_layers(cfg)
+    cmp = {} if n_attn == 0 else kernel_vs_plain(params, cfg, batch)
     torch.cuda.empty_cache()
 
     state = opt_init(cfg.optimizer, params)
@@ -1393,8 +1700,9 @@ def run_train(cfg) -> dict:
 
     L = cfg.n_layers
     n = TRAIN_TIMED_STEPS
-    want = {"flash_fwd": 2 * L * n, "flash_bwd_dq": L * n,
-            "flash_bwd_dkv": L * n, "quantize": n_big * n,
+    # remat runs each attention layer's forward kernel twice
+    want = {"flash_fwd": 2 * n_attn * n, "flash_bwd_dq": n_attn * n,
+            "flash_bwd_dkv": n_attn * n, "quantize": n_big * n,
             "dequantize": n_big * n, "checksum": 0, "shard_pack": 0,
             "shard_unpack": 0}
     if launches != want:
@@ -1449,6 +1757,67 @@ def phase_moe_train() -> dict:
     return r
 
 
+def ssm_layer_grads_card_vs_host(cfg, gen) -> dict:
+    """One SSM layer at full width in fp32 (fresh params from ``gen``), its
+    parameter gradients of a random linear function of ``ssd_forward``'s
+    output and final state over one TRAIN_SEQ row, on the card against
+    the same computation on the host CPU from the same numbers (the
+    reference here; summation order only), per leaf at SSM_GRAD_REL_TOL."""
+    import torch
+    from repro_torch.models import ssm
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    p = ssm.init_ssm(gen, cfg32)
+    x = torch.randn((1, TRAIN_SEQ, cfg.d_model), generator=gen,
+                    device="cuda")
+    wy = torch.randn(x.shape, generator=gen, device="cuda")
+    ws = torch.randn((1, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim),
+                     generator=gen, device="cuda")
+
+    def grads(device) -> dict:
+        pp = {n: w.detach().to(device).requires_grad_()
+              for n, w in p.items()}
+        y, st, _ = ssm.ssd_forward(pp, x.to(device), cfg32)
+        ((y * wy.to(device)).sum() + (st * ws.to(device)).sum()).backward()
+        return {n: w.grad.cpu() for n, w in pp.items()}
+
+    card, host = grads("cuda"), grads("cpu")
+    rel = {n: rel_err(card[n], host[n]) for n in card}
+    return {"seq": TRAIN_SEQ, "leaf_rel": rel,
+            "ok": all(math.isfinite(v) and v <= SSM_GRAD_REL_TOL
+                      for v in rel.values())}
+
+
+def phase_ssm_train() -> dict:
+    """The SSM training slice, mamba2-370m at full width and depth with
+    the training slice's settings (no attention layer, so no
+    kernel-vs-plain comparison: its kernels are the int8 compression's);
+    then one layer's gradients on the card against the host's."""
+    import torch
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch(SSM_ARCH), optimizer="adafactor",
+                              grad_compression=True, remat=True)
+    r = run_train(cfg)
+    g = ssm_layer_grads_card_vs_host(
+        cfg, torch.Generator(device="cuda").manual_seed(4))
+    r["ssm_layer_grads_card_vs_host"] = g
+    torch.cuda.empty_cache()
+    if not g["ok"]:
+        fail(f"SSM layer gradients, card vs host: {g}")
+    return r
+
+
+def phase_hybrid_train() -> dict:
+    """The hybrid training slice: recurrentgemma-9b at full width, its
+    depth cut to HYBRID_TRAIN_LAYERS, with the training slice's settings
+    (the local attention through the flash kernels, window biting at
+    S = 4096)."""
+    from repro_torch.configs import get_arch
+    return run_train(dataclasses.replace(
+        get_arch(HYBRID_ARCH), n_layers=HYBRID_TRAIN_LAYERS,
+        attn_impl="flash_pallas", optimizer="adafactor",
+        grad_compression=True, remat=True))
+
+
 def _bound(flops: float, nbytes: float) -> tuple[float, str]:
     """The least time the card could take: the larger of the operations
     over the bf16 peak and the bytes over HBM's rate."""
@@ -1458,30 +1827,58 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
                                  else "bytes")
 
 
+def sdpa_backend(fn) -> dict:
+    """The backend a scaled_dot_product_attention call takes, read from
+    the names of the kernels it launches (torch.profiler): cudnn, flash,
+    efficient (the CUTLASS fmha kernels) or math."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == DeviceType.CUDA})
+    low = " ".join(names).lower()
+    backend = next((b for b, keys in (("cudnn", ("cudnn",)),
+                                      ("flash", ("flash",)),
+                                      ("efficient", ("fmha", "efficient")))
+                    if any(k in low for k in keys)), "math")
+    return {"backend": backend, "kernels": [n[:100] for n in names]}
+
+
 def attn_times(case, iters: int, plain_iters: int, bwd: bool) -> dict:
-    """flash_fwd at ``case`` (bf16, causal) and, with ``bwd``, the dq +
-    dk/dv pair fed the forward kernel's own ``out`` and ``lse``: each
+    """flash_fwd at ``case`` (bf16, the case's mask) and, with ``bwd``, the
+    dq + dk/dv pair fed the forward kernel's own ``out`` and ``lse``: each
     beside its bound, its plain twin and scaled_dot_product_attention
-    (timed as a yardstick only; ``enable_gqa`` where G > 1)."""
+    (timed as a yardstick only; ``enable_gqa`` where G > 1, an explicit
+    boolean mask under a window or prefix, and the backend it takes)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    B, S, Hq, n_kv, D = case[:5]
+    B, S, Hq, n_kv, D, causal, window, prefix = case
+    mask = dict(causal=causal, window=window, prefix=prefix)
     gen = torch.Generator(device="cuda").manual_seed(12)
     (q, k, v), (q5, k4, v4) = make_qkv(case, torch.bfloat16, gen)
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-    gqa = dict(enable_gqa=True) if n_kv < Hq else {}
-    r = {"ms": cuda_ms(lambda: fa.flash_fwd(q5, k4, v4, causal=True),
+    allow = fa._allow(S, S, causal, window, prefix, "cuda")
+    sdpa_kw = dict(enable_gqa=True) if n_kv < Hq else {}
+    if window or prefix:
+        sdpa_kw["attn_mask"] = allow
+    else:
+        sdpa_kw["is_causal"] = causal
+    r = {"ms": cuda_ms(lambda: fa.flash_fwd(q5, k4, v4, **mask),
                        iters=iters),
          "plain_ms": cuda_ms(lambda: fa.flash_fwd_reference(
-             q5, k4, v4, causal=True), iters=plain_iters)}
+             q5, k4, v4, **mask), iters=plain_iters)}
     with torch.no_grad():
-        r["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True, **gqa), iters=iters)
-    # the causal triangle this data needs: S(S+1)/2 scores per q head, each
-    # product one multiply-add over D; q/k/v/dO/out/dq/dk/dv (bf16) and
-    # lse/delta (fp32) read or written once
-    prod = 2.0 * B * Hq * D * S * (S + 1) / 2
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, **sdpa_kw)
+        r["library_ms"] = cuda_ms(sdpa, iters=iters)
+        r["library_backend"] = sdpa_backend(sdpa)
+    # the (query, key) pairs this mask allows (causal: S(S+1)/2 per q
+    # head), each product one multiply-add over D; q/k/v/dO/out/dq/dk/dv
+    # (bf16) and lse/delta (fp32) read or written once
+    prod = 2.0 * B * Hq * D * float(allow.sum())
     nq, nkv, rows = q.numel() * 2, k.numel() * 2, 4 * B * Hq * S
     r["bound_ms"], r["bound_by"] = _bound(2 * prod, 2 * nq + 2 * nkv + rows)
     r["flops"], r["bytes"] = 2 * prod, 2 * nq + 2 * nkv + rows
@@ -1491,19 +1888,20 @@ def attn_times(case, iters: int, plain_iters: int, bwd: bool) -> dict:
     do = torch.randn(q.shape, generator=gen, device="cuda") \
         .to(torch.bfloat16)
     do5 = do.reshape(B, S, n_kv, Hq // n_kv, D).permute(0, 2, 3, 1, 4)
-    out5, lse = fa.flash_fwd(q5, k4, v4, causal=True)
+    out5, lse = fa.flash_fwd(q5, k4, v4, **mask)
     delta = (do5.float() * out5.float()).sum(-1)
-    pair = lambda: fa.flash_bwd(q5, k4, v4, do5, lse, delta, causal=True)
+    pair = lambda: fa.flash_bwd(q5, k4, v4, do5, lse, delta, **mask)
     r["pair_ms"] = cuda_ms(pair, iters=5)
     per = _profiled_ms(pair, TC_KERNELS["flash_bwd"])
     r["plain_pair_ms"] = cuda_ms(lambda: fa.flash_bwd_reference(
-        q5, k4, v4, do5, lse, delta, causal=True), iters=2, warmup=1)
+        q5, k4, v4, do5, lse, delta, **mask), iters=2, warmup=1)
     qg, kg, vg = (x.detach().requires_grad_() for x in (qh, kh, vh))
-    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                              **gqa)
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, **sdpa_kw)
     doh = do.transpose(1, 2)
-    r["library_pair_ms"] = cuda_ms(lambda: torch.autograd.grad(
-        sdpa_out, (qg, kg, vg), doh, retain_graph=True), iters=5)
+    sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), doh,
+                                           retain_graph=True)
+    r["library_pair_ms"] = cuda_ms(sdpa_bwd, iters=5)
+    r["library_pair_backend"] = sdpa_backend(sdpa_bwd)
     # dq does 3 products (q.k, dO.v, ds.k), dk/dv 4, the pair only 5
     reads = 2 * nq + 2 * nkv + 2 * rows
     for name, n_prod, written in (("dq", 3, nq), ("dkv", 4, 2 * nkv),
@@ -1513,7 +1911,7 @@ def attn_times(case, iters: int, plain_iters: int, bwd: bool) -> dict:
     r["dq_ms"] = per["flash_bwd_dq_tc_kernel"]
     r["dkv_ms"] = per["flash_bwd_dkv_tc_kernel"]
     del q, k, v, do, q5, k4, v4, do5, out5, lse, delta, qg, kg, vg
-    del sdpa_out, doh
+    del sdpa_out, doh, allow
     torch.cuda.empty_cache()
     return r
 
@@ -1532,6 +1930,17 @@ def phase_moe_kernel_times() -> dict:
                                       plain_iters=5, bwd=True),
             "train_shape": attn_times(MOE_TRAIN_CASE, iters=5, plain_iters=2,
                                       bwd=True)}
+
+
+def phase_hybrid_kernel_times() -> dict:
+    """flash_fwd and the backward pair at the hybrid's local-attention
+    shapes (16 q heads over 1 KV head of 256, G = 16, window 2048):
+    serving (B=4 x 1024, the window does not bite) and training (B=2 x
+    4096, it does)."""
+    return {"serve_shape": attn_times(HYBRID_SERVE_CASE, iters=20,
+                                      plain_iters=5, bwd=True),
+            "train_shape": attn_times(HYBRID_TRAIN_CASE, iters=5,
+                                      plain_iters=2, bwd=True)}
 
 
 def phase_storage_kernel_times(tree: dict) -> dict:
@@ -1691,6 +2100,14 @@ def main() -> int:
     print(json.dumps({"moe_serve": moe_serve_run, "card": card}))
     moe_train_run = phase_moe_train()
     print(json.dumps({"moe_train": moe_train_run, "card": card}))
+    ssm_serve_run = phase_ssm_serve()
+    print(json.dumps({"ssm_serve": ssm_serve_run, "card": card}))
+    ssm_train_run = phase_ssm_train()
+    print(json.dumps({"ssm_train": ssm_train_run, "card": card}))
+    hybrid_serve_run = phase_hybrid_serve()
+    print(json.dumps({"hybrid_serve": hybrid_serve_run, "card": card}))
+    hybrid_train_run = phase_hybrid_train()
+    print(json.dumps({"hybrid_train": hybrid_train_run, "card": card}))
     ckpt_run = phase_ckpt_train()
     saved = ckpt_run.pop("copy")
     stripe_run = phase_stripe(saved)
@@ -1704,14 +2121,19 @@ def main() -> int:
     print(json.dumps({"train_kernel_times": tt, "card": card}))
     mt = phase_moe_kernel_times()
     print(json.dumps({"moe_kernel_times": mt, "card": card}))
+    ht = phase_hybrid_kernel_times()
+    print(json.dumps({"hybrid_kernel_times": ht, "card": card}))
     print(json.dumps({"ckpt_train": {
         k: v for k, v in ckpt_run.items()
         if k in ("result", "run_s", "check_s", "launches", "timings",
                  "peak_mem_gb", "host_after")}, "card": card}))
-    tl = {k: v + moe_train_run["launches"][k]
-          for k, v in train_run["launches"].items()}
-    # the G = 16 shapes of the MoE slices, beside the bound and SDPA
-    g16 = lambda key: {f"{key}_moe_{shape}_shape": mt[f"{shape}_shape"][key]
+    train_runs = (train_run, moe_train_run, ssm_train_run, hybrid_train_run)
+    tl = {k: sum(r["launches"][k] for r in train_runs)
+          for k in train_run["launches"]}
+    # the G = 16 shapes of the MoE and hybrid slices, beside the bound and
+    # SDPA
+    g16 = lambda key: {f"{key}_{fam}_{shape}_shape": t[f"{shape}_shape"][key]
+                       for fam, t in (("moe", mt), ("hybrid", ht))
                        for shape in ("serve", "train")}
     bwd_plain = tt["flash_bwd_plain_pair_ms"]  # the twin computes the pair
     sdpa_bwd = tt["sdpa_backward_ms"]          # likewise
@@ -1721,8 +2143,9 @@ def main() -> int:
         "name": "flash_fwd", "route": "cuda", "source": csrc + "flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:92",
         "launches": slice_run["flash_fwd_launches"] + tl["flash_fwd"]
-        + sum(n["flash_fwd"] for n in offload_run["launches"].values())
-        + sum(n["flash_fwd"] for n in moe_serve_run["launches"].values()),
+        + sum(n["flash_fwd"] for run in (offload_run, moe_serve_run,
+                                         hybrid_serve_run)
+              for n in run["launches"].values()),
         "max_abs_err": max(slice_err, fwd_train_err), "ms": times["ms"],
         "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"], "library_ms": times["library_ms"],

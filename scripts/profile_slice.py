@@ -4,6 +4,9 @@
     PYTHONPATH=src python3 scripts/profile_slice.py [--decode-steps 4]
     PYTHONPATH=src python3 scripts/profile_slice.py \
         --arch qwen3-moe-235b-a22b --serve-layers 8 --train-layers 2
+    PYTHONPATH=src python3 scripts/profile_slice.py --arch mamba2-370m
+    PYTHONPATH=src python3 scripts/profile_slice.py \
+        --arch recurrentgemma-9b --train-layers 20
 
 Builds the slices that chip_smoke.py drives (an architecture at full
 width, deepseek-7b by default, bf16, random weights from a seeded
@@ -15,12 +18,14 @@ once without the profiler, then traced with ``torch.profiler`` (CPU and
 CUDA activities).  For each phase it prints one JSON line: the host-clock
 wall time with and without the profiler, the device's busy time (the union
 of kernel intervals) and idle share, launches, and device time by kernel
-category and by kernel name.  For a MoE architecture each of ``moe_ffn``'s
-stages (router, dispatch, experts, combine) runs inside a named profiler
-range while the script runs, and the line adds the device time of the
-kernels launched in each range (the forward, and its recompute under
-remat) and of those launched by each autograd backward node.  Needs a CUDA
-card.
+category and by kernel name.  For the MoE, SSM and hybrid architectures the
+model's stages run inside named profiler ranges while the script runs:
+``moe_ffn``'s router, dispatch, experts and combine; the SSD layer; the
+hybrid's rec layers (their fp32 gate GEMMs and the log-depth scan in
+ranges of their own), local attention and MLPs.  The line then adds the
+device time of the kernels launched in each range (the innermost one: the
+forward, and its recompute under remat) and of those launched by each
+autograd backward node.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -67,38 +72,50 @@ def busy_us(intervals) -> float:
     return total
 
 
-# moe_ffn's stages, each wrapped in a profiler range of the category's name
-MOE_STAGES = (("route", "router"), ("dispatch", "dispatch"),
-              ("expert_ffn", "experts"), ("combine", "combine"))
-RANGE = "moe."
+# per family: (module, function, range); each call of the function runs
+# inside a profiler range named "<family>.<range>"
+RANGES = {
+    "moe": (("moe", "route", "router"), ("moe", "dispatch", "dispatch"),
+            ("moe", "expert_ffn", "experts"), ("moe", "combine", "combine")),
+    "ssm": (("ssm", "ssd_forward", "ssd"), ("ssm", "ssd_decode_step", "ssd")),
+    "hybrid": (("rglru", "rglru_block", "rec"),
+               ("rglru", "_rglru_coeffs", "rec_fp32_gates"),
+               ("rglru", "_linear_scan_assoc", "rec_scan"),
+               ("transformer", "_apply_attn_block", "local_attn"),
+               ("layers", "attention_decode", "local_attn"),
+               ("layers", "apply_mlp", "mlp")),
+}
+RANGE = tuple(f"{family}." for family in RANGES)
 BACKWARD = "autograd::engine::evaluate_function: "
 
 
-def watch_moe_stages() -> None:
-    """Run each of ``moe_ffn``'s stages inside a named profiler range (the
-    model looks them up in its module at every call)."""
+def watch_stages(family: str) -> None:
+    """Run each of the family's stages inside a named profiler range (the
+    model looks them up in their modules at every call)."""
+    import importlib
+
     from torch.profiler import record_function
+    for mod_name, fn_name, cat in RANGES.get(family, ()):
+        mod = importlib.import_module(f"repro_torch.models.{mod_name}")
+        fn = getattr(mod, fn_name)
 
-    from repro_torch.models import moe
-    for fn_name, cat in MOE_STAGES:
-        fn = getattr(moe, fn_name)
-
-        def ranged(*a, _fn=fn, _range=RANGE + cat, **kw):
+        def ranged(*a, _fn=fn, _range=f"{family}.{cat}", **kw):
             with record_function(_range):
                 return _fn(*a, **kw)
-        setattr(moe, fn_name, ranged)
+        setattr(mod, fn_name, ranged)
 
 
 def device_ms_by_range(prof) -> dict:
-    """Device ms of the kernels launched inside each MoE stage's range, and
-    of those each autograd backward node launched (outside the ranges)."""
+    """Device ms of the kernels launched inside each stage's range (the
+    innermost), and of those each autograd backward node launched (outside
+    the ranges)."""
     from torch.autograd import DeviceType
     out = defaultdict(float)
     for e in prof.events():
         if e.device_type != DeviceType.CPU or not e.kernels:
             continue
         p = e
-        while p is not None and not p.name.startswith((RANGE, BACKWARD)):
+        while p is not None and not p.name.startswith((*RANGE, BACKWARD)):
             p = p.cpu_parent
         if p is None:
             continue
@@ -219,8 +236,7 @@ def main() -> int:
     serve_cfg, train_cfg = (
         dataclasses.replace(base, n_layers=n or base.n_layers)
         for n in (args.serve_layers, args.train_layers))
-    if base.family == "moe":
-        watch_moe_stages()
+    watch_stages(base.family)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_model(gen, serve_cfg, device="cuda")
 

@@ -1,5 +1,5 @@
-"""Model zoo of the PyTorch port: the dense and MoE decoder-only families
-(ssm, hybrid, encdec and vlm are not ported yet)."""
+"""Model zoo of the PyTorch port: the dense, MoE, SSM (Mamba2) and hybrid
+(Griffin) decoder-only families (encdec and vlm are not ported yet)."""
 from .model import (cache_spec, forward_decode, forward_prefill,
                     forward_train, init_cache, init_model, input_specs,
                     make_inputs, param_count, text_len)

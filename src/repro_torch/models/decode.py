@@ -1,11 +1,15 @@
-"""Serving paths in torch, dense family: prefill (build the KV cache over a
-full prompt) and decode (one token against the cache).
+"""Serving paths in torch: prefill (build the cache over a full prompt)
+and decode (one token against the cache), for the dense, MoE, SSM and
+hybrid families.
 
 Counterpart of the JAX package's models/decode.py.  Caches are dicts of
-layer-stacked (L, B, S_cache, Hkv, D) tensors.  SWA architectures allocate
-ring caches of window length, so decoding costs O(window) per step.
-Decode writes the new k/v into the cache in place (see
-``layers.attention_decode``) and returns the same dict.
+layer-stacked tensors: (L, B, S_cache, Hkv, D) k/v for attention layers
+(SWA and the hybrid's local attention allocate ring caches of window
+length, so decoding costs O(window) per step), the SSM's fp32 (L, B, H, N,
+P) state and conv tail, the hybrid's fp32 (n_rec, B, w) RG-LRU state and
+conv tail beside its local k/v.  Decode writes the new k/v, states and
+conv tails into the cache in place (see ``layers.attention_decode``) and
+returns the same dict.
 """
 from __future__ import annotations
 
@@ -15,6 +19,8 @@ import torch
 
 from ..device import resolve_device
 from . import layers as L
+from . import rglru as R
+from . import ssm as SSM
 from . import transformer as T
 
 Params = dict
@@ -35,9 +41,27 @@ def cache_len(cfg, seq_len: int) -> int:
 def cache_spec(cfg, seq_len: int, batch: int) -> dict:
     """TensorSpec dict of the decode cache."""
     T._require_ported(cfg)
-    Lc = cache_len(cfg, seq_len)
-    shape = (cfg.n_layers, batch, Lc, cfg.n_kv_heads, cfg.head_dim)
     dt = L._dtype(cfg)
+    if cfg.family == "ssm":
+        din = cfg.ssm_expand * cfg.d_model
+        return {
+            "state": TensorSpec((cfg.n_layers, batch, cfg.ssm_heads,
+                                 cfg.ssm_state, cfg.ssm_headdim),
+                                torch.float32),
+            "conv": TensorSpec((cfg.n_layers, batch, cfg.conv_width - 1,
+                                din + 2 * cfg.ssm_state), dt)}
+    if cfg.family == "hybrid":
+        n_super, n_left = T.hybrid_layout(cfg)
+        n_rec = 2 * n_super + n_left
+        w = cfg.lru_width or cfg.d_model
+        kv = (n_super, batch, min(seq_len, cfg.local_window), cfg.n_kv_heads,
+              cfg.head_dim)
+        return {"rec_h": TensorSpec((n_rec, batch, w), torch.float32),
+                "rec_conv": TensorSpec((n_rec, batch, cfg.conv_width - 1, w),
+                                       dt),
+                "k": TensorSpec(kv, dt), "v": TensorSpec(kv, dt)}
+    shape = (cfg.n_layers, batch, cache_len(cfg, seq_len), cfg.n_kv_heads,
+             cfg.head_dim)
     return {"k": TensorSpec(shape, dt), "v": TensorSpec(shape, dt)}
 
 
@@ -60,17 +84,61 @@ def forward_decode(params: Params, cfg, cache: dict, tokens: torch.Tensor,
     pos = int(pos)
     n_heads = T.params_n_heads(params, cfg)
     x = L.embed(params["embed"], tokens)
-    if cfg.rotary_pct == 0.0:
+    if cfg.rotary_pct == 0.0 and cfg.family != "ssm":
         posv = torch.full((x.shape[0], 1), pos, device=x.device)
         x = x + T._sinusoidal(posv, cfg.d_model).to(x.dtype)
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            lp = T.layer(params["blocks"], i)
+            h = L.rms_norm(x, lp["norm1"])
+            y, st, cv = SSM.ssd_decode_step(lp["ssm"], h, cfg,
+                                            cache["state"][i],
+                                            cache["conv"][i])
+            cache["state"][i].copy_(st)
+            cache["conv"][i].copy_(cv)
+            x = x + y
+        return x, cache
+    if cfg.family == "hybrid":
+        return _hybrid_decode(params, cfg, cache, x, pos, n_heads), cache
     for i in range(cfg.n_layers):
         lp = T.layer(params["blocks"], i)
-        h = L.rms_norm(x, lp["norm1"])
-        out, _, _ = L.attention_decode(lp["attn"], h, cfg, cache["k"][i],
-                                       cache["v"][i], pos, n_heads)
-        x = x + out
-        x, _ = T._apply_mlp_or_moe(lp, x, cfg)
+        x = _attn_decode_block(lp, x, cfg, cache, i, pos, n_heads)
     return x, cache
+
+
+def _attn_decode_block(lp, x, cfg, cache, i, pos, n_heads):
+    """One attention block's decode step against cache k/v ``i``."""
+    h = L.rms_norm(x, lp["norm1"])
+    out, _, _ = L.attention_decode(lp["attn"], h, cfg, cache["k"][i],
+                                   cache["v"][i], pos, n_heads)
+    x, _ = T._apply_mlp_or_moe(lp, x + out, cfg)
+    return x
+
+
+def _rec_decode_block(lp, x, cfg, cache, j):
+    """Rec layer ``j``'s decode step; its state and conv tail in place."""
+    h = L.rms_norm(x, lp["norm1"])
+    y, hf, cf = R.rglru_decode_step(lp["rec"], h, cfg, cache["rec_h"][j],
+                                    cache["rec_conv"][j])
+    cache["rec_h"][j].copy_(hf)
+    cache["rec_conv"][j].copy_(cf)
+    x, _ = T._apply_mlp_or_moe(lp, x + y, cfg)
+    return x
+
+
+def _hybrid_decode(params, cfg, cache, x, pos, n_heads):
+    """The hybrid's layers in ``forward_train``'s order (see
+    ``transformer.hybrid_layout``)."""
+    n_super, n_left = T.hybrid_layout(cfg)
+    rec, attn = params["rec_blocks"], params["attn_blocks"]
+    for s in range(n_super):
+        for j in (s, n_super + s):
+            x = _rec_decode_block(T.layer(rec, j), x, cfg, cache, j)
+        x = _attn_decode_block(T.layer(attn, s), x, cfg, cache, s, pos,
+                               n_heads)
+    for j in range(2 * n_super, 2 * n_super + n_left):
+        x = _rec_decode_block(T.layer(rec, j), x, cfg, cache, j)
+    return x
 
 
 # ======================================================================
@@ -99,6 +167,15 @@ def forward_prefill(params: Params, cfg, batch, pad_to: int | None = None):
     n_heads = T.params_n_heads(params, cfg)
     x, positions = T._embed_inputs(params, cfg, batch)
     pad_to = pad_to if pad_to is not None else x.shape[1] + 1
+    if cfg.family == "ssm":
+        states, convs = [], []
+        for i in range(cfg.n_layers):
+            x, (st, cv) = T._ssm_block(T.layer(params["blocks"], i), x, cfg)
+            states.append(st)
+            convs.append(cv)
+        return x, {"state": torch.stack(states), "conv": torch.stack(convs)}
+    if cfg.family == "hybrid":
+        return _hybrid_prefill(params, cfg, x, positions, n_heads, pad_to)
     Lc = cache_len(cfg, max(x.shape[1], pad_to))
     ks, vs = [], []
     for i in range(cfg.n_layers):
@@ -109,3 +186,28 @@ def forward_prefill(params: Params, cfg, batch, pad_to: int | None = None):
         ks.append(_fit_cache_seq(k[None], Lc)[0])
         vs.append(_fit_cache_seq(v[None], Lc)[0])
     return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def _hybrid_prefill(params, cfg, x, positions, n_heads, pad_to):
+    """The local caches keep the last ``Wloc`` positions in slots 0.. as
+    the reference's do, so a prompt longer than the window leaves decode
+    evicting the wrong slot (the SWA ring-cache fault, reproduced)."""
+    n_super, n_left = T.hybrid_layout(cfg)
+    rec, attn = params["rec_blocks"], params["attn_blocks"]
+    Wloc = min(max(x.shape[1], pad_to), cfg.local_window)
+    hs = [None] * (2 * n_super + n_left)
+    cs = [None] * len(hs)
+    ks, vs = [], []
+    for s in range(n_super):
+        for j in (s, n_super + s):
+            x, hs[j], cs[j] = T._rec_block(T.layer(rec, j), x, cfg)
+        x, _, (k, v) = T._dense_block(T.layer(attn, s), x, cfg, positions,
+                                      n_heads=n_heads,
+                                      window=cfg.local_window, prefix=0,
+                                      collect_kv=True)
+        ks.append(_fit_cache_seq(k[None], Wloc)[0])
+        vs.append(_fit_cache_seq(v[None], Wloc)[0])
+    for j in range(2 * n_super, len(hs)):
+        x, hs[j], cs[j] = T._rec_block(T.layer(rec, j), x, cfg)
+    return x, {"rec_h": torch.stack(hs), "rec_conv": torch.stack(cs),
+               "k": torch.stack(ks), "v": torch.stack(vs)}

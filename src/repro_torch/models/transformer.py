@@ -1,13 +1,17 @@
-"""Architecture assembly in torch: the dense and MoE decoder-only families.
+"""Architecture assembly in torch: the dense, MoE, Mamba2 SSD and Griffin
+hybrid decoder-only families.
 
 Counterpart of the JAX package's models/transformer.py.  Layer params are
 stacked with a leading ``L`` dim, as in JAX; ``lax.scan`` over the stack
 becomes a Python loop over ``params["blocks"][...][i]``, and the scan's
-per-block ``jax.checkpoint`` (``cfg.remat``) a per-layer
-``torch.utils.checkpoint``.  A MoE block (qwen3-moe, arctic) is the dense
-block with ``moe.moe_ffn`` in place of the MLP; its aux loss is summed over
-the layers.  The families this port has not reached yet (ssm, hybrid,
-encdec, vlm) raise ``NotImplementedError`` when a model is built for them.
+per-body ``jax.checkpoint`` (``cfg.remat``) a ``torch.utils.checkpoint``
+of the same body: one layer, or one (rec, rec, local_attn) super-block of
+the hybrid.  A MoE block (qwen3-moe, arctic) is the dense block with
+``moe.moe_ffn`` in place of the MLP; its aux loss is summed over the
+layers.  The hybrid keeps its rec and local-attention layers in two stacks
+(``rec_blocks``, ``attn_blocks``) and applies them as the reference does:
+super-blocks, then the leftover rec layers.  The encdec and vlm families
+are not ported; building a model for them raises ``NotImplementedError``.
 
   forward_train(params, cfg, batch) -> (hidden, aux_loss)
 """
@@ -21,11 +25,13 @@ from torch.utils.checkpoint import checkpoint
 from ..tree import tree_map
 from . import layers as L
 from . import moe as M
+from . import rglru as R
+from . import ssm as SSM
 from .attention_flash import blockwise_attention
 
 Params = dict
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _require_ported(cfg) -> None:
@@ -40,10 +46,15 @@ def _require_ported(cfg) -> None:
 # ======================================================================
 
 def _block_init(gen: torch.Generator, cfg, kind: str, tp_pad: int) -> Params:
-    if kind not in ("attn", "moe"):
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     dt = L._dtype(cfg)
     ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
+    if kind == "ssm":
+        return {"ssm": SSM.init_ssm(gen, cfg), "norm1": ones()}
+    if kind == "rec":
+        return {"norm1": ones(), "rec": R.init_rglru_block(gen, cfg),
+                "norm2": ones(), "mlp": L.init_mlp(gen, cfg)}
+    if kind not in ("attn", "moe", "local_attn"):
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     p = {"norm1": ones(), "attn": L.init_attention(gen, cfg, tp_pad),
          "norm2": ones()}
     if kind == "moe":
@@ -82,11 +93,27 @@ def block_kinds(cfg) -> list[str]:
     return ["attn"] * cfg.n_layers
 
 
+def hybrid_layout(cfg) -> tuple[int, int]:
+    """(n_super, n_left) of the hybrid: super-block s applies rec layers
+    s and n_super + s, then attention layer s (the reference reshapes the
+    first 2 n_super rec layers to (2, n_super) and swaps the axes); the
+    n_left rec layers after them follow."""
+    n_attn = block_kinds(cfg).count("local_attn")
+    return n_attn, cfg.n_layers - 3 * n_attn
+
+
 def init_model(gen: torch.Generator, cfg, tp_pad: int = 1) -> Params:
     """Draws every param from ``gen`` on its device.  tp_pad: q-heads are
     padded up to a multiple of it (zero-weight pad heads)."""
     _require_ported(cfg)
     params: Params = {"embed": L.init_embedding(gen, cfg)}
+    if cfg.family == "hybrid":
+        n_super, n_left = hybrid_layout(cfg)
+        params["rec_blocks"] = _stack(gen, cfg, "rec", 2 * n_super + n_left,
+                                      tp_pad)
+        params["attn_blocks"] = _stack(gen, cfg, "local_attn", n_super,
+                                       tp_pad)
+        return params
     params["blocks"] = _stack(gen, cfg, block_kinds(cfg)[0], cfg.n_layers,
                               tp_pad)
     return params
@@ -170,6 +197,23 @@ def _dense_block(p, x, cfg, positions, *, n_heads, window, prefix,
     return x, aux, (kv if collect_kv else None)
 
 
+def _rec_block(p, x, cfg, state=None, conv_state=None):
+    """-> (x', h_final, conv tail): the RG-LRU block and the MLP."""
+    h = L.rms_norm(x, p["norm1"])
+    y, h_final, new_conv = R.rglru_block(p["rec"], h, cfg, state=state,
+                                         conv_state=conv_state)
+    x, _ = _apply_mlp_or_moe(p, x + y, cfg)
+    return x, h_final, new_conv
+
+
+def _ssm_block(p, x, cfg, state=None):
+    """-> (x', (final state, conv tail))."""
+    h = L.rms_norm(x, p["norm1"])
+    y, final, conv_tail = SSM.ssd_forward(p["ssm"], h, cfg,
+                                          initial_state=state)
+    return x + y, (final, conv_tail)
+
+
 # ======================================================================
 # full-sequence forward
 # ======================================================================
@@ -200,33 +244,69 @@ def forward_train(params: Params, cfg, batch, n_groups: int = 1):
     Differentiable in the params that require grad: a backward pass leaves
     each leaf's gradient in its ``.grad``, the stacked block leaves
     included (filled layer by layer, see ``_grad_slot``).  With
-    ``cfg.remat`` each layer is checkpointed, so only its input is kept
-    and its forward runs again during the backward pass."""
+    ``cfg.remat`` each body (a layer, or a hybrid super-block) is
+    checkpointed, so only its input is kept and its forward runs again
+    during the backward pass."""
     _require_ported(cfg)
     n_heads = params_n_heads(params, cfg)
     x, positions = _embed_inputs(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     grad = torch.is_grad_enabled()
+    zero = lambda: torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def block(lp, xx):
-        y, aux_i, _ = _dense_block(lp, xx, cfg, positions, n_heads=n_heads,
-                                   window=cfg.swa_window, prefix=0,
-                                   n_groups=n_groups)
-        return y, aux_i
-
-    for i in range(cfg.n_layers):
+    def take(stack, i):
         if grad:
-            lp = tree_map(lambda a: _grad_slot(a, i), params["blocks"])
-        else:
-            lp = layer(params["blocks"], i)
+            return tree_map(lambda a: _grad_slot(a, i), stack)
+        return layer(stack, i)
+
+    if cfg.family == "ssm":
+        def block(lp, xx):
+            return _ssm_block(lp, xx, cfg)[0], zero()
+        bodies = ((block, take(params["blocks"], i))
+                  for i in range(cfg.n_layers))
+    elif cfg.family == "hybrid":
+        n_super, n_left = hybrid_layout(cfg)
+        rec, attn = params["rec_blocks"], params["attn_blocks"]
+
+        def super_block(lp, xx):
+            for sub in lp["rec"]:
+                xx, _, _ = _rec_block(sub, xx, cfg)
+            xx, aux_i, _ = _dense_block(lp["attn"], xx, cfg, positions,
+                                        n_heads=n_heads,
+                                        window=cfg.local_window, prefix=0)
+            return xx, aux_i
+
+        def leftover(lp, xx):
+            return _rec_block(lp, xx, cfg)[0], zero()
+        bodies = [(super_block, {"rec": [take(rec, s),
+                                         take(rec, n_super + s)],
+                                 "attn": take(attn, s)})
+                  for s in range(n_super)]
+        bodies += [(leftover, take(rec, 2 * n_super + t))
+                   for t in range(n_left)]
+    else:
+        def block(lp, xx):
+            y, aux_i, _ = _dense_block(lp, xx, cfg, positions,
+                                       n_heads=n_heads,
+                                       window=cfg.swa_window, prefix=0,
+                                       n_groups=n_groups)
+            return y, aux_i
+        bodies = ((block, take(params["blocks"], i))
+                  for i in range(cfg.n_layers))
+
+    for body, lp in bodies:
         if grad and cfg.remat:
-            x, aux_i = checkpoint(block, lp, x, use_reentrant=False)
+            x, aux_i = checkpoint(body, lp, x, use_reentrant=False)
         else:
-            x, aux_i = block(lp, x)
+            x, aux_i = body(lp, x)
         aux = aux + aux_i
     return x, aux
 
 
 def params_n_heads(params: Params, cfg) -> int:
     """Recover the (possibly TP-padded) q-head count from the weights."""
-    return params["blocks"]["attn"]["wq"].shape[-1] // cfg.head_dim
+    if cfg.family == "ssm":
+        return 0
+    stack = params["attn_blocks"] if cfg.family == "hybrid" \
+        else params["blocks"]
+    return stack["attn"]["wq"].shape[-1] // cfg.head_dim

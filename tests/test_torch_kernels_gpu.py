@@ -33,6 +33,8 @@ CASES = [
     (1, 300, 4, 1, 96, True, 50, 20),    # window and prefix together
     (4, 1024, 64, 4, 128, True, 0, 0),   # qwen3-moe serving: GQA, G = 16
     (2, 4096, 64, 4, 128, True, 0, 0),   # qwen3-moe training: G = 16
+    (4, 1024, 16, 1, 256, True, 2048, 0),  # recurrentgemma serving: MQA
+    (2, 4096, 16, 1, 256, True, 2048, 0),  # its training: the window bites
 ]
 # fp32: the reference tests' 3e-4 (the scalar fp32 kernel).  bf16: the
 # tensor-core kernel sums exact products of the bf16 inputs in fp32, rounds
@@ -354,6 +356,39 @@ def test_moe_ffn_on_the_card_matches_cpu(cuda, dtype):
     torch.testing.assert_close(y.cpu().float(), y_cpu.float(), rtol=tol,
                                atol=tol * scale)
     torch.testing.assert_close(aux.cpu(), aux_cpu, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_recurrent_serving_on_the_card_matches_cpu(cuda, arch):
+    """The recurrent families' smoke prefill and one decode step in fp32
+    (the hybrid's local attention through the forward kernel): hidden
+    states and every cache leaf on the card against the CPU from the same
+    params and tokens (summation order only, 1e-4), with one ``flash_fwd``
+    a local-attention layer in the prefill and none in decode."""
+    from repro_torch.configs import ARCHS, smoke_variant
+    from repro_torch.models import (forward_decode, forward_prefill,
+                                    init_model)
+    cfg = dataclasses.replace(smoke_variant(ARCHS[arch]), n_layers=5,
+                              attn_impl="flash_pallas")
+    params = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 25),
+                           generator=torch.Generator().manual_seed(1))
+    to = lambda t: {k: to(v) for k, v in t.items()} \
+        if isinstance(t, dict) else t.to(cuda)
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", to(params))):
+        before = fa.LAUNCHES
+        h, c = forward_prefill(p, cfg, {"tokens": tokens[:, :24].to(dev)})
+        after_prefill = fa.LAUNCHES
+        h2, c = forward_decode(p, cfg, c, tokens[:, 24:].to(dev), 24)
+        out[dev] = (h, h2, c, after_prefill - before,
+                    fa.LAUNCHES - after_prefill)
+    h, h2, c, n_pre, n_dec = out["cuda"]
+    want_pre = 1 if arch == "recurrentgemma-9b" else 0
+    assert (n_pre, n_dec) == (want_pre, 0)
+    for got, want in ((h, out["cpu"][0]), (h2, out["cpu"][1]),
+                      *((c[k], out["cpu"][2][k]) for k in c)):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
 # ------------------------- checksum, stripe pack -------------------------
