@@ -65,6 +65,17 @@ Phases, each fatal on failure:
    log-depth scan against its sequential recurrence in fp32) and training
    cut to 20 layers (the training slice's checks, the window biting at
    S = 4096);
+   then the encoder-decoder, seamless-m4t-large-v2 (24 + 24 layers, 16
+   MHA heads of 64), and the prefix-LM VLM, paligemma-3b (18 layers, 8 q
+   heads over 1 KV head of 256, 256 stub patch embeddings as a
+   bidirectional prefix), each at full width and depth, serving and
+   training, the budgets split as ``text_len`` splits them (seamless: 512
+   frames + 512 tokens serving, 2048 + 2048 training; paligemma: 256
+   patches + 768 tokens, 256 + 3840): exact launch counts (seamless one
+   ``flash_fwd`` an encoder layer and two a decoder layer, self and
+   cross), kernel vs blockwise hidden state, decode at S against a prefill
+   of S+1 (for seamless the cross-attention of 513 queries over 512
+   keys), and the training slice's checks;
 5. drive the checkpointed-training slice through the port's driver
    (``launch.train.run``): deepseek-7b at full width cut to 2 layers,
    the training slice's settings, async checkpoints every 3 steps into the
@@ -78,9 +89,9 @@ Phases, each fatal on failure:
    checkpoint through ``ops.shard_pack`` / ``ops.shard_unpack``
    (16 targets, 64 KiB cells), with exact launch counts;
 6. time the slices and each kernel against its bound, its plain version and
-   the nearest PyTorch call, the flash kernels also at the MoE and hybrid
-   slices' shapes (SDPA with an explicit boolean window mask there, and
-   the backend it takes).
+   the nearest PyTorch call, the flash kernels also at the MoE, hybrid,
+   encoder-decoder and VLM slices' shapes (SDPA with an explicit boolean
+   mask under a window or prefix, and the backend it takes).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the kernels' JSON record, and the card's line precedes that.
@@ -171,6 +182,33 @@ HYBRID_TRAIN_CASE = (TRAIN_BATCH, TRAIN_SEQ, 16, 1, 256, True, 2048, 0)
 # reported in bf16 and held in fp32 at full width and depth
 # (``fp32_serving_checks``), at the limits above; recurrentgemma's bf16
 # decode identity (0.043) is held as well.
+# The encoder-decoder and the prefix-LM VLM at full width and depth,
+# serving and training; the serving and training budgets (SLICE_PROMPT,
+# TRAIN_SEQ positions) split as the reference's text_len splits them.
+# seamless-m4t-large-v2: 24 encoder + 24 decoder layers, d 1024, 16 MHA
+# heads of 64, ff 8192 gelu, vocab 256206 (256256 padded), sinusoidal
+# positions; the encoder's bidirectional attention and the decoder's
+# causal self-attention and bidirectional cross-attention each launch
+# the flash kernels.  paligemma-3b: 18 layers, d 2048, 8 q heads over 1
+# KV head of 256 (G = 8), ff 16384 geglu, vocab 257216 (257280 padded),
+# 256 stub patch embeddings as a bidirectional prefix of the causal text
+# (the kernels' prefix mask through the D > 128 column split).  Both
+# train with their configs' AdamW (fp32 moments: 19.6 and 36.5 GB with
+# the params and gradients), int8 compression and remat.
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+VLM_ARCH = "paligemma-3b"
+ENCDEC_SERVE_CASE = (SLICE_BATCH, SLICE_PROMPT // 2, 16, 16, 64, True, 0, 0)
+ENCDEC_BIDIR_CASE = (SLICE_BATCH, SLICE_PROMPT // 2, 16, 16, 64, False, 0,
+                     0)
+ENCDEC_TRAIN_CASE = (TRAIN_BATCH, TRAIN_SEQ // 2, 16, 16, 64, True, 0, 0)
+ENCDEC_BIDIR_TRAIN_CASE = (TRAIN_BATCH, TRAIN_SEQ // 2, 16, 16, 64, False,
+                           0, 0)
+# the decode identity's cross-attention: a prefill of S+1 = 513 decoder
+# tokens over the 512 encoder frames (the case's 9th entry is Sk)
+ENCDEC_CROSS_CASE = (SLICE_BATCH, SLICE_PROMPT // 2 + 1, 16, 16, 64, False,
+                     0, 0, SLICE_PROMPT // 2)
+VLM_SERVE_CASE = (SLICE_BATCH, SLICE_PROMPT, 8, 1, 256, True, 0, 256)
+VLM_TRAIN_CASE = (TRAIN_BATCH, TRAIN_SEQ, 8, 1, 256, True, 0, 256)
 # One SSM layer at full width in fp32: the chunked ssd_forward against
 # the sequential ssd_decode_step over SLICE_PROMPT steps, at the
 # reference's chunked-vs-sequential tolerance (tests/test_models.py).
@@ -186,9 +224,11 @@ RGLRU_SCAN_REL_TOL = 1e-4
 # (summation order only), relative norm of the difference per leaf.
 SSM_GRAD_REL_TOL = 1e-4
 
-# (B, S, Hq, n_kv, D, causal, window, prefix): the reference tests' cases,
-# a ragged S, the MoE serving shape (G = 16), the hybrid's (MQA, G = 16,
-# D = 256, window 2048) and the slice's shape (last).
+# (B, S, Hq, n_kv, D, causal, window, prefix[, Sk]): the reference tests'
+# cases, a ragged S, the MoE serving shape (G = 16), the hybrid's (MQA,
+# G = 16, D = 256, window 2048), the encoder-decoder's (D = 64: causal,
+# bidirectional, and bidirectional with Sq != Sk), the VLM's (G = 8,
+# D = 256, prefix 256) and the slice's shape (last).  Sk defaults to S.
 KERNEL_CASES = [
     (2, 64, 4, 2, 128, True, 0, 0),
     (2, 64, 4, 2, 80, True, 0, 0),
@@ -198,8 +238,14 @@ KERNEL_CASES = [
     (2, 1000, 4, 2, 128, True, 0, 0),
     MOE_SERVE_CASE,
     HYBRID_SERVE_CASE,
+    ENCDEC_SERVE_CASE,
+    ENCDEC_BIDIR_CASE,
+    ENCDEC_CROSS_CASE,
+    VLM_SERVE_CASE,
     (SLICE_BATCH, SLICE_PROMPT, 32, 32, 128, True, 0, 0),
 ]
+SERVE_CASES = (KERNEL_CASES[-1], MOE_SERVE_CASE, HYBRID_SERVE_CASE,
+               ENCDEC_SERVE_CASE, ENCDEC_BIDIR_CASE, VLM_SERVE_CASE)
 # fp32: the reference tests' 3e-4.  bf16 inputs: the tensor-core kernel
 # sums exact products of the bf16 inputs in fp32, rounds p to bf16 once as
 # the operand of P.V and `out` once when stored (each at most 2^-9
@@ -213,9 +259,12 @@ TOL = {"float32": {"out": 3e-4, "lse": 3e-4},
 # dq/dk/dv once when stored (each 2^-9 relative), so each is held at 1e-2
 # relative plus 1e-2 of its largest |value| (sums over up to 4096 keys
 # cancel, so single elements can be far below the tensor's scale).
+TRAIN_CASES = (TRAIN_CASE, MOE_TRAIN_CASE, HYBRID_TRAIN_CASE,
+               ENCDEC_TRAIN_CASE, ENCDEC_BIDIR_TRAIN_CASE, VLM_TRAIN_CASE)
 BWD_CASES = KERNEL_CASES[:6] + [(1, 333, 6, 3, 256, True, 100, 0),
-                                MOE_SERVE_CASE, HYBRID_SERVE_CASE, TRAIN_CASE,
-                                MOE_TRAIN_CASE, HYBRID_TRAIN_CASE]
+                                MOE_SERVE_CASE, HYBRID_SERVE_CASE,
+                                ENCDEC_CROSS_CASE, VLM_SERVE_CASE,
+                                *TRAIN_CASES]
 GRAD_TOL = {"float32": (4e-3, 4e-3), "bfloat16": (1e-2, 1e-2)}
 # The elementwise limits above are loose for the late rows of a causal
 # pass, whose values are one to two orders of magnitude below the first
@@ -241,6 +290,16 @@ QUANT_LEAF = (4096, 11008)
 # gradient at 1e-1 relative (norm of the difference over the plain norm;
 # read 0.011-0.035, largest for wk and wq).  A missing or wrong attention
 # gradient moves the attention leaves by O(1).
+# The encoder-decoder's cross-attention q/k leaves (xattn wq, wk, norm3)
+# read 0.158 in bf16 on that card, and 1e-4 in fp32: the flash backward
+# takes delta = rowsum(dO * O) from the bf16-rounded O, as the reference's
+# does, and delta's rounding error reaches dq and dk times the mean of k
+# over the keys, which the true gradient cancels; the encoder's output,
+# which has no final norm, is mostly that mean (rms 5.38 of 5.54 over
+# positions).  With delta from an fp32 forward those leaves read 0.058
+# against fp32, below the plain bf16 path's 0.068 (PERF.md).  So that
+# family's leaves are held in fp32 at full width and depth and reported in
+# bf16; its loss and grad norm are held in bf16 as every family's.
 TRAIN_LOSS_REL_TOL = 3e-4
 TRAIN_GNORM_REL_TOL = 2e-3
 TRAIN_LEAF_REL_TOL = 1e-1
@@ -354,15 +413,27 @@ def _greedy(logits):
     return torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
 
 
+def case_mask(case) -> dict:
+    """A kernel case's mask arguments."""
+    causal, window, prefix = case[5:8]
+    return dict(causal=causal, window=window, prefix=prefix)
+
+
+def case_sk(case) -> int:
+    """A kernel case's key length: its 9th entry, else S."""
+    return case[8] if len(case) > 8 else case[1]
+
+
 def make_qkv(case, dtype, gen):
     """q, k, v in the model's (B, S, H, D) layout and the kernel's 5-D
     views of them (strided, no copies), as ``ops.flash_attention`` makes
     them."""
     import torch
     B, S, Hq, n_kv, D = case[:5]
+    Sk = case_sk(case)
     q = torch.randn((B, S, Hq, D), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((B, S, n_kv, D), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((B, S, n_kv, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Sk, n_kv, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, n_kv, D), generator=gen, device="cuda").to(dtype)
     q5 = q.reshape(B, S, n_kv, Hq // n_kv, D).permute(0, 2, 3, 1, 4)
     return (q, k, v), (q5, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3))
 
@@ -410,30 +481,27 @@ def phase_build() -> None:
 
 def phase_kernels() -> float:
     """Kernel vs plain version on the card; returns the largest bf16
-    |out error| at the serving slices' shapes (deepseek-7b, qwen3-moe and
-    recurrentgemma-9b)."""
+    |out error| at the serving slices' shapes (deepseek-7b, qwen3-moe,
+    recurrentgemma-9b, seamless-m4t-large-v2 and paligemma-3b)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(11)
     slice_err = 0.0
     for case in KERNEL_CASES:
-        causal, window, prefix = case[5:]
+        mask = case_mask(case)
         for dtype in (torch.float32, torch.bfloat16):
             _, (q5, k4, v4) = make_qkv(case, dtype, gen)
-            out, lse = fa.flash_fwd(q5, k4, v4, causal=causal,
-                                    window=window, prefix=prefix)
+            out, lse = fa.flash_fwd(q5, k4, v4, **mask)
             torch.cuda.synchronize()
             ref_out, ref_lse = fa.flash_fwd_reference(
-                q5.float(), k4.float(), v4.float(), causal=causal,
-                window=window, prefix=prefix)
+                q5.float(), k4.float(), v4.float(), **mask)
             r = check_fwd(out, lse, ref_out, ref_lse, dtype)
             print(json.dumps({"kernel": "flash_fwd", "case": case,
                               "dtype": str(dtype), **r}))
             if not r["ok"]:
                 fail(f"flash_fwd disagrees with its plain version: {case} "
                      f"{dtype}")
-            if case in (KERNEL_CASES[-1], MOE_SERVE_CASE,
-                        HYBRID_SERVE_CASE) and dtype == torch.bfloat16:
+            if case in SERVE_CASES and dtype == torch.bfloat16:
                 slice_err = max(slice_err, r["max_abs_err_out"])
     # a negative scale at the serving shape: the bf16 kernel runs it on a
     # negated q tile with |scale|
@@ -458,7 +526,8 @@ def phase_bwd_kernels() -> tuple[float, float]:
     and ``lse`` as the training step feeds them, each against its plain
     version on the card; returns the largest bf16 |error| of ``out`` and
     over dq, dk and dv at the training slices' shapes (deepseek-7b,
-    qwen3-moe and recurrentgemma-9b).  Runs before any model is loaded:
+    qwen3-moe, recurrentgemma-9b, seamless-m4t-large-v2 and paligemma-3b).
+    Runs before any model is loaded:
     at the qwen3-moe shape the plain versions hold several 8.6 GB
     (B, n_kv, G, S, S) fp32 tensors."""
     import torch
@@ -466,8 +535,7 @@ def phase_bwd_kernels() -> tuple[float, float]:
     gen = torch.Generator(device="cuda").manual_seed(13)
     fwd_err = bwd_err = 0.0
     for case in BWD_CASES:
-        causal, window, prefix = case[5:]
-        mask = dict(causal=causal, window=window, prefix=prefix)
+        mask = case_mask(case)
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
             B, S, Hq, n_kv, D = case[:5]
@@ -509,8 +577,7 @@ def phase_bwd_kernels() -> tuple[float, float]:
             if not ok:
                 fail(f"flash_bwd disagrees with its plain version: {case} "
                      f"{dtype}")
-            if case in (TRAIN_CASE, MOE_TRAIN_CASE, HYBRID_TRAIN_CASE) \
-                    and dtype == torch.bfloat16:
+            if case in TRAIN_CASES and dtype == torch.bfloat16:
                 fwd_err = max(fwd_err, fwd["max_abs_err_out"])
                 bwd_err = max(bwd_err, *errs)
             del got, want, lse, delta
@@ -634,36 +701,57 @@ def phase_storage_kernels(device="cuda") -> dict:
 
 def attn_layers(cfg) -> int:
     """The attention layers of an architecture: each launches ``flash_fwd``
-    once a prefill under ``flash_pallas``."""
+    once a prefill under ``flash_pallas`` (an encoder-decoder's decoder
+    layer twice: self- and cross-attention)."""
     from repro_torch.models.transformer import block_kinds
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.dec_layers
     return sum(k != "ssm" and k != "rec" for k in block_kinds(cfg))
+
+
+def model_inputs(cfg, gen, B: int, S: int) -> dict:
+    """A batch of B rows for a budget of S positions through the port's
+    ``make_inputs``, split as the reference's ``text_len`` splits it: the
+    tokens, then the VLM's stub patch embeddings or the encoder-decoder's
+    stub frame embeddings, drawn from ``gen`` on the card."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import make_inputs
+    return make_inputs(gen, cfg, ShapeConfig("slice", S, B, "prefill"),
+                       device="cuda")
+
+
+def prompt_positions(cfg, batch) -> int:
+    """The positions a prefill of ``batch`` caches: the decoder's tokens,
+    after the VLM's patches."""
+    return batch["tokens"].shape[1] + cfg.n_prefix_tokens
 
 
 def serve_main_path(cfg) -> tuple[dict, dict]:
     """A serving slice at full width through the port's entry points:
     params from a seeded generator on the card, B=SLICE_BATCH prompts of
-    SLICE_PROMPT tokens through ``make_prefill_step``, then
+    SLICE_PROMPT positions (``model_inputs``) through
+    ``make_prefill_step``, then
     SLICE_DECODE_STEPS greedy ``make_decode_step`` steps, after a warm-up.
     Every launch counter is set to 0 just before the prefill and before
     the decode steps and read just after each: ``flash_fwd`` must run once
     an attention layer in the prefill and nothing else anywhere.  The logits must be
     finite and the tokens in the vocabulary.  Returns the state the
-    phase's checks go on from (params, prompts, steps, the first greedy
-    token, the first decode step's logits, the last token and the cache)
-    and the readings."""
+    phase's checks go on from (params, the batch and its tokens, steps,
+    the first greedy token, the first decode step's logits, the last token
+    and the cache) and the readings."""
     import torch
     from repro_torch.models import init_model, param_count
     from repro_torch.serve import make_decode_step, make_prefill_step
 
-    B, S = SLICE_BATCH, SLICE_PROMPT
+    B = SLICE_BATCH
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = init_model(gen, cfg, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
-                            device="cuda", dtype=torch.int32)
-    batch = {"tokens": prompts}
+    batch = model_inputs(cfg, gen, B, SLICE_PROMPT)
+    prompts = batch["tokens"]
+    S = prompt_positions(cfg, batch)       # the decoder's first position
     prefill = make_prefill_step(cfg, pad_to=S + SLICE_PAD, device="cuda")
     decode = make_decode_step(cfg, device="cuda")
 
@@ -709,16 +797,18 @@ def serve_main_path(cfg) -> tuple[dict, dict]:
             int(gen_tokens.max()) >= cfg.padded_vocab():
         fail(f"{cfg.name} serving: bad generated tokens "
              f"{tuple(gen_tokens.shape)}")
-    state = {"params": params, "prompts": prompts, "prefill": prefill,
-             "decode": decode, "tok0": tok0, "decode0_logits": decode0_logits,
-             "tok": tok, "cache": cache}
+    state = {"params": params, "batch": batch, "prompts": prompts,
+             "prefill": prefill, "decode": decode, "tok0": tok0,
+             "decode0_logits": decode0_logits, "tok": tok, "cache": cache}
     return state, {
         "arch": cfg.name, "layers": cfg.n_layers,
         "params": param_count(params), "dtype": cfg.param_dtype,
-        "batch": B, "prompt": S, "pad_to": S + SLICE_PAD,
+        "batch": B, "prompt": SLICE_PROMPT,
+        "inputs": {k: list(v.shape) for k, v in batch.items()},
+        "pad_to": S + SLICE_PAD,
         "decode_steps": SLICE_DECODE_STEPS, "init_s": init_s,
         "prefill_ms": prefill_ms,
-        "prefill_tokens_per_s": B * S / (prefill_ms / 1e3),
+        "prefill_tokens_per_s": B * SLICE_PROMPT / (prefill_ms / 1e3),
         "decode_ms_per_step": decode_ms,
         "decode_tokens_per_s": B / (decode_ms / 1e3),
         "peak_mem_gb": peak_gb, "launches": launches}
@@ -730,12 +820,12 @@ def hold(what: str, reading: float, limit: float) -> None:
         fail(f"{what}: {reading} (limit {limit})")
 
 
-def hidden_vs_blockwise(params, cfg, prompts) -> float:
+def hidden_vs_blockwise(params, cfg, batch) -> float:
     """The kernel path's last-token hidden state against the plain
     blockwise path's: the relative norm error."""
     import torch
     from repro_torch.models import forward_prefill
-    batch, pad_to = {"tokens": prompts}, SLICE_PROMPT + SLICE_PAD
+    pad_to = prompt_positions(cfg, batch) + SLICE_PAD
     with torch.no_grad():
         h_kernel, c = forward_prefill(params, cfg, batch, pad_to=pad_to)
         h_kernel = h_kernel[:, -1].float()
@@ -754,8 +844,9 @@ def decode_vs_prefill(st: dict) -> dict:
     of a prefill of S+1 tokens, the relative norm error and the greedy
     tokens' agreement."""
     import torch
-    full_logits, c = st["prefill"](st["params"], {"tokens": torch.cat(
-        [st["prompts"], st["tok0"]], dim=1)})
+    full_logits, c = st["prefill"](st["params"], dict(
+        st["batch"], tokens=torch.cat([st["batch"]["tokens"], st["tok0"]],
+                                      dim=1)))
     del c
     decode0_logits = st["decode0_logits"]
     return {"rel_err": rel_err(decode0_logits[:, -1], full_logits[:, -1]),
@@ -773,7 +864,7 @@ def phase_slice() -> dict:
     cfg = dataclasses.replace(get_arch(SLICE_ARCH), attn_impl="flash_pallas")
     st, r = serve_main_path(cfg)
     del st["cache"]
-    hidden_rel = hidden_vs_blockwise(st["params"], cfg, st["prompts"])
+    hidden_rel = hidden_vs_blockwise(st["params"], cfg, st["batch"])
     hold("kernel-path hidden state vs blockwise", hidden_rel, HIDDEN_REL_TOL)
     ident = decode_vs_prefill(st)
     hold("decode at S vs prefill of S+1", ident["rel_err"], DECODE_REL_TOL)
@@ -846,7 +937,7 @@ def rglru_scan_vs_sequential(lp: dict, cfg, gen) -> dict:
     return r
 
 
-def attention_replayed(params, cfg, prompts) -> list:
+def attention_replayed(params, cfg, batch) -> list:
     """A bf16 prefill through the kernel path with each attention layer's
     kernel output held against the blockwise attention of the same q, k
     and v (the kernel path's own activations at full width): the relative
@@ -867,14 +958,14 @@ def attention_replayed(params, cfg, prompts) -> list:
     ops.flash_attention = replayed
     try:
         with torch.no_grad():
-            forward_prefill(params, cfg, {"tokens": prompts},
-                            pad_to=SLICE_PROMPT + SLICE_PAD)
+            forward_prefill(params, cfg, batch,
+                            pad_to=prompt_positions(cfg, batch) + SLICE_PAD)
     finally:
         ops.flash_attention = kernel
     return errs
 
 
-def fp32_serving_checks(cfg, prompts) -> dict:
+def fp32_serving_checks(cfg, batch) -> dict:
     """A recurrent family's serving identities held in fp32 at full width
     and depth, where bf16 roundings, carried through the recurrent state
     and residual stream of every layer, grow past the limits (PERF.md):
@@ -888,22 +979,22 @@ def fp32_serving_checks(cfg, prompts) -> dict:
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_model(gen, cfg32, device="cuda")
-    S = prompts.shape[1]
+    S = prompt_positions(cfg, batch)
     prefill = make_prefill_step(cfg32, pad_to=S + SLICE_PAD, device="cuda")
-    logits, cache = prefill(params, {"tokens": prompts})
+    logits, cache = prefill(params, batch)
     tok0 = _greedy(logits)
     _, decode0_logits, cache = make_decode_step(cfg32, device="cuda")(
         params, cache, tok0, S)
     del cache
     r = {"dtype": cfg32.param_dtype, "layers": cfg.n_layers,
          "decode_vs_prefill": decode_vs_prefill({
-             "params": params, "prompts": prompts, "prefill": prefill,
+             "params": params, "batch": batch, "prefill": prefill,
              "tok0": tok0, "decode0_logits": decode0_logits})}
     hold(f"{cfg.name} fp32 decode at S vs prefill of S+1",
          r["decode_vs_prefill"]["rel_err"], DECODE_REL_TOL)
     if attn_layers(cfg):
         r["hidden_rel_err_vs_blockwise"] = hidden_vs_blockwise(
-            params, cfg32, prompts)
+            params, cfg32, batch)
         hold(f"{cfg.name} fp32 kernel-path hidden state vs blockwise",
              r["hidden_rel_err_vs_blockwise"], HIDDEN_REL_TOL)
     del params
@@ -929,12 +1020,12 @@ def phase_ssm_serve() -> dict:
     seq = ssd_chunked_vs_sequential(layer(st["params"]["blocks"], 0)["ssm"],
                                     cfg, gen)
     r["ssd_chunked_vs_sequential"] = seq
-    prompts = st["prompts"]
+    batch = st["batch"]
     del st
     torch.cuda.empty_cache()
     if not seq["ok"]:
         fail(f"ssd_forward vs the sequential recurrence: {seq}")
-    r["fp32"] = fp32_serving_checks(cfg, prompts)
+    r["fp32"] = fp32_serving_checks(cfg, batch)
     r["decode_rel_tol"] = DECODE_REL_TOL
     return r
 
@@ -959,14 +1050,14 @@ def phase_hybrid_serve() -> dict:
     st, r = serve_main_path(cfg)
     r["cache_bytes"] = sum(c.numel() * c.element_size()
                            for c in st.pop("cache").values())
-    params, prompts = st["params"], st["prompts"]
+    params, batch = st["params"], st["batch"]
     r["flash_fwd_launches"] = sum(c["flash_fwd"]
                                   for c in r["launches"].values())
-    replayed = attention_replayed(params, cfg, prompts)
+    replayed = attention_replayed(params, cfg, batch)
     r["attention_replayed_rel_err"] = replayed
     r["attention_replayed_rel_tol"] = BLOCK_REL_TOL["bfloat16"]
     r["hidden_rel_err_vs_blockwise_bf16"] = hidden_vs_blockwise(
-        params, cfg, prompts)
+        params, cfg, batch)
     r["decode_vs_prefill_bf16"] = decode_vs_prefill(st)
     gen = torch.Generator(device="cuda").manual_seed(3)
     scan = rglru_scan_vs_sequential(layer(params["rec_blocks"], 0)["rec"],
@@ -983,9 +1074,63 @@ def phase_hybrid_serve() -> dict:
          r["decode_vs_prefill_bf16"]["rel_err"], DECODE_REL_TOL)
     if not scan["ok"]:
         fail(f"the RG-LRU scan vs the sequential recurrence: {scan}")
-    r["fp32"] = fp32_serving_checks(cfg, prompts)
+    r["fp32"] = fp32_serving_checks(cfg, batch)
     r.update(hidden_rel_tol=HIDDEN_REL_TOL, decode_rel_tol=DECODE_REL_TOL)
     return r
+
+
+def attention_serve(arch: str) -> dict:
+    """An attention family's serving slice at full width and depth with
+    ``flash_pallas``, through the port's entry points
+    (``serve_main_path``: ``flash_fwd`` once an attention launch site a
+    prefill, ``attn_layers``, never in decode); each launch's kernel output
+    against the blockwise attention of its own q, k, v in bf16; the kernel
+    path's hidden state against the blockwise path's; decode at S against
+    a prefill of S+1."""
+    import torch
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch(arch), attn_impl="flash_pallas")
+    st, r = serve_main_path(cfg)
+    r["cache_bytes"] = sum(c.numel() * c.element_size()
+                           for c in st.pop("cache").values())
+    params, batch = st["params"], st["batch"]
+    r["flash_fwd_launches"] = sum(c["flash_fwd"]
+                                  for c in r["launches"].values())
+    replayed = attention_replayed(params, cfg, batch)
+    r["attention_replayed_max_rel_err"] = max(replayed)
+    r["attention_replayed_rel_tol"] = BLOCK_REL_TOL["bfloat16"]
+    r["hidden_rel_err_vs_blockwise"] = hidden_vs_blockwise(params, cfg,
+                                                           batch)
+    r["decode_vs_prefill"] = decode_vs_prefill(st)
+    r.update(hidden_rel_tol=HIDDEN_REL_TOL, decode_rel_tol=DECODE_REL_TOL)
+    del st, params
+    torch.cuda.empty_cache()
+    if len(replayed) != attn_layers(cfg):
+        fail(f"{cfg.name}: {len(replayed)} attention launches replayed")
+    for i, e in enumerate(replayed):
+        hold(f"{cfg.name} attention launch {i}'s kernel output vs blockwise "
+             "on its own inputs", e, BLOCK_REL_TOL["bfloat16"])
+    hold(f"{cfg.name} kernel-path hidden state vs blockwise",
+         r["hidden_rel_err_vs_blockwise"], HIDDEN_REL_TOL)
+    hold(f"{cfg.name} decode at S vs prefill of S+1",
+         r["decode_vs_prefill"]["rel_err"], DECODE_REL_TOL)
+    return r
+
+
+def phase_encdec_serve() -> dict:
+    """The encoder-decoder serving slice, seamless-m4t-large-v2 at full
+    width and depth: SLICE_PROMPT / 2 stub frames into the encoder and
+    SLICE_PROMPT / 2 tokens into the decoder, 72 ``flash_fwd`` a prefill
+    (24 encoder, 24 self, 24 cross), the decode identity's prefill of
+    S+1 tokens running the cross-attention at 513 queries over 512 keys."""
+    return attention_serve(ENCDEC_ARCH)
+
+
+def phase_vlm_serve() -> dict:
+    """The prefix-LM VLM serving slice, paligemma-3b at full width and
+    depth: 256 stub patch embeddings and SLICE_PROMPT - 256 tokens, the
+    prefix mask in each of the 18 ``flash_fwd`` launches of a prefill."""
+    return attention_serve(VLM_ARCH)
 
 
 def phase_serve_offload() -> dict:
@@ -1557,25 +1702,45 @@ def phase_stripe(tree: dict) -> dict:
     return r
 
 
-def train_model_flops(cfg, n_params: int) -> float:
+def train_model_flops(cfg, params) -> float:
     """Model FLOPs of one training step (no recompute): 6 per matmul weight
     a token passes through (the token-embedding lookup is no product; of a
     MoE layer's experts only the k routed ones, never all E), plus the
     sequence-mixing products, x3 with the backward: attention 4 B H D a
     (query, key) pair an attention layer forward, over the S(S+1)/2 causal
     pairs or, under a window W (the hybrid's local layers), W(W+1)/2 +
-    (S-W) W; the SSD's intra-chunk products 2 B S Q (N + H P) and its
-    chunk-state and inter-chunk products 2 x 2 B S H N P a layer.
-    ``n_params`` is counted from the param tree: ``ModelConfig.n_params()``
+    (S-W) W, or with a prefix P the P(P-1)/2 more it opens; the SSD's
+    intra-chunk products 2 B S Q (N + H P) and its chunk-state and
+    inter-chunk products 2 x 2 B S H N P a layer.  The budget of
+    TRAIN_SEQ positions splits as ``model_inputs`` splits it: the VLM's
+    head runs on its text positions only; the encoder-decoder's encoder
+    weights and its cross-attention's k/v projections see the Se frames,
+    the rest of the decoder and the head the Sd tokens, over Se^2
+    bidirectional encoder pairs, Sd(Sd+1)/2 causal and Sd Se cross pairs
+    a layer.  Params are counted from the tree: ``ModelConfig.n_params()``
     leaves out every family's untied head and the RG-LRU's w_r and w_i
     (recurrentgemma-9b: 1.92e9 of its 10.44e9)."""
+    from repro_torch.models import param_count, text_len
     from repro_torch.models.ssm import chunk_len
     B, S = TRAIN_BATCH, TRAIN_SEQ
-    active = n_params - cfg.padded_vocab() * cfg.d_model
+    head = cfg.d_model * cfg.padded_vocab()
+    per_pair = 4.0 * B * cfg.n_heads * cfg.head_dim
+    if cfg.family == "encdec":
+        Sd = text_len(cfg, S)
+        Se = S - Sd
+        xkv = sum(params["decoder"]["xattn"][w].numel() for w in ("wk", "wv"))
+        enc = param_count(params["encoder"]) + xkv
+        dec = param_count(params["decoder"]) - xkv + head
+        pairs = cfg.enc_layers * Se * Se + cfg.dec_layers * (
+            Sd * (Sd + 1) / 2 + Sd * Se)
+        return 6.0 * B * (enc * Se + dec * Sd) + 3.0 * per_pair * pairs
+    active = param_count(params) - cfg.padded_vocab() * cfg.d_model
     if cfg.family == "moe":
         active -= cfg.n_layers * (cfg.n_experts - cfg.experts_per_token) \
             * 3 * cfg.d_model * cfg.d_ff
     dense = 6.0 * active * B * S
+    if cfg.family == "vlm":          # the head sees the text only
+        dense -= 6.0 * head * B * (S - text_len(cfg, S))
     if cfg.family == "ssm":
         H, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim
         Q = chunk_len(S, cfg.ssm_chunk)
@@ -1585,16 +1750,19 @@ def train_model_flops(cfg, n_params: int) -> float:
         W = cfg.local_window if cfg.family == "hybrid" else cfg.swa_window
         pairs = S * (S + 1) / 2 if not W or S <= W \
             else W * (W + 1) / 2 + (S - W) * W
-        mix = attn_layers(cfg) * 4.0 * B * cfg.n_heads * cfg.head_dim * pairs
+        P = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
+        pairs += P * (P - 1) / 2
+        mix = attn_layers(cfg) * per_pair * pairs
     return dense + 3.0 * mix
 
 
-def kernel_vs_plain(params, cfg, batch) -> dict:
+def kernel_vs_plain(params, cfg, batch, hold_leaves: bool = True) -> dict:
     """The kernel path's loss, grad norm and per-leaf gradients against the
     plain path's (``attn_impl="flash"``) from the same params and batch,
-    held at TRAIN_LOSS_REL_TOL, TRAIN_GNORM_REL_TOL and TRAIN_LEAF_REL_TOL
-    (MoE: each leaf with the kernel path's routing replayed).  The kernel
-    path's grads wait on the host while the plain path runs."""
+    held at TRAIN_LOSS_REL_TOL, TRAIN_GNORM_REL_TOL and, with
+    ``hold_leaves``, TRAIN_LEAF_REL_TOL (MoE: each leaf with the kernel
+    path's routing replayed).  The kernel path's grads wait on the host
+    while the plain path runs."""
     from repro_torch.train import global_norm, loss_and_grads
     from repro_torch.tree import tree_items
     (loss_k, aux_k, grads), experts = _watch_routes(
@@ -1632,12 +1800,14 @@ def kernel_vs_plain(params, cfg, batch) -> dict:
     del grads_k
     held = cmp.get("replayed", free)
     print(json.dumps({"train_kernel_vs_plain": {
-        "arch": cfg.name, "loss_kernel": float(loss_k),
-        "aux_kernel": float(aux_k), "grad_norm_kernel": gnorm_k, **cmp}}))
+        "arch": cfg.name, "dtype": cfg.param_dtype,
+        "loss_kernel": float(loss_k), "aux_kernel": float(aux_k),
+        "grad_norm_kernel": gnorm_k, "leaves_held": hold_leaves, **cmp}}))
     if not (all(c["loss_rel"] <= TRAIN_LOSS_REL_TOL
                 and c["grad_norm_rel"] <= TRAIN_GNORM_REL_TOL
                 for c in cmp.values())
-            and all(math.isfinite(v) and v <= TRAIN_LEAF_REL_TOL
+            and all(math.isfinite(v) and (v <= TRAIN_LEAF_REL_TOL
+                                          or not hold_leaves)
                     for v in held["leaf_rel"].values())):
         fail(f"{cfg.name} training kernel path vs plain path out of its "
              "limits")
@@ -1645,33 +1815,41 @@ def kernel_vs_plain(params, cfg, batch) -> dict:
 
 
 
-def run_train(cfg) -> dict:
+def run_train(cfg, fp32_leaves: bool = False) -> dict:
     """A training slice at full width through ``make_train_step``: the
     kernel path's loss, grad norm and per-leaf gradients against the plain
     path's from the same params and batch (where the model has attention
-    layers), then one warm-up step and TRAIN_TIMED_STEPS timed ones with
-    every launch counter set to 0 just before and read just after (exact
-    counts), and the loss must fall."""
+    layers; with ``fp32_leaves`` the leaves are reported in bf16 and held
+    with both paths in fp32, from the same params widened), then one
+    warm-up step and TRAIN_TIMED_STEPS timed ones with every launch
+    counter set to 0 just before and read just after (exact counts), and
+    the loss must fall."""
     import torch
     from repro_torch.kernels.quantize import BLOCK_GROUPS, GROUP
     from repro_torch.models import init_model, param_count
     from repro_torch.train import make_eval_step, make_train_step, opt_init
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_leaves, tree_map
 
     B, S = TRAIN_BATCH, TRAIN_SEQ
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_model(gen, cfg, device="cuda")
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
-                                     generator=gen, device="cuda",
-                                     dtype=torch.int32)}
+    batch = model_inputs(cfg, gen, B, S)
     n_params = param_count(params)
     # leaves the int8 compression quantizes (smaller ones pass as they are)
     n_big = sum(1 for p in tree_leaves(params)
                 if p.numel() >= GROUP * BLOCK_GROUPS)
 
     n_attn = attn_layers(cfg)
-    cmp = {} if n_attn == 0 else kernel_vs_plain(params, cfg, batch)
+    cmp = {} if n_attn == 0 else kernel_vs_plain(
+        params, cfg, batch, hold_leaves=not fp32_leaves)
     torch.cuda.empty_cache()
+    if n_attn and fp32_leaves:
+        widen = lambda t: t.float() if t.is_floating_point() else t
+        cmp["fp32"] = kernel_vs_plain(
+            tree_map(widen, params),
+            dataclasses.replace(cfg, param_dtype="float32"),
+            {k: widen(v) for k, v in batch.items()})["free"]
+        torch.cuda.empty_cache()
 
     state = opt_init(cfg.optimizer, params)
     step = make_train_step(cfg, device="cuda")
@@ -1714,13 +1892,14 @@ def run_train(cfg) -> dict:
     if not after < first_loss:
         fail(f"loss did not fall: first step {first_loss}, after "
              f"{n} more steps {after}")
-    flops = train_model_flops(cfg, n_params)
+    flops = train_model_flops(cfg, params)
     del params, state
     torch.cuda.empty_cache()
     return {"arch": cfg.name, "layers": L, "params": n_params,
             "dtype": cfg.param_dtype, "optimizer": cfg.optimizer,
             "grad_compression": cfg.grad_compression, "remat": cfg.remat,
             "attn_impl": cfg.attn_impl, "batch": B, "seq": S,
+            "inputs": {k: list(v.shape) for k, v in batch.items()},
             "timed_steps": n, "first_loss": first_loss,
             "step_losses": losses, "grad_norms": norms, "aux_losses": auxes,
             "loss_after": after, "step_ms": step_ms,
@@ -1755,6 +1934,29 @@ def phase_moe_train() -> dict:
     if not all(a > 0 for a in r["aux_losses"]):
         fail(f"MoE aux loss not positive: {r['aux_losses']}")
     return r
+
+
+def phase_encdec_train() -> dict:
+    """The encoder-decoder training slice: seamless-m4t-large-v2 at full
+    width and depth, TRAIN_SEQ / 2 frames and TRAIN_SEQ / 2 tokens, with
+    its config's AdamW, int8 compression and remat (144 ``flash_fwd``, 72
+    dq and 72 dk/dv a step; the gradient of the encoder's output summed
+    over the 24 cross-attention layers); the per-leaf gradients held in
+    fp32 (see TRAIN_LEAF_REL_TOL)."""
+    from repro_torch.configs import get_arch
+    return run_train(dataclasses.replace(
+        get_arch(ENCDEC_ARCH), attn_impl="flash_pallas",
+        grad_compression=True, remat=True), fp32_leaves=True)
+
+
+def phase_vlm_train() -> dict:
+    """The VLM training slice: paligemma-3b at full width and depth, 256
+    patches and TRAIN_SEQ - 256 tokens (the loss on the text positions),
+    with its config's AdamW, int8 compression and remat."""
+    from repro_torch.configs import get_arch
+    return run_train(dataclasses.replace(
+        get_arch(VLM_ARCH), attn_impl="flash_pallas", grad_compression=True,
+        remat=True))
 
 
 def ssm_layer_grads_card_vs_host(cfg, gen) -> dict:
@@ -1856,17 +2058,17 @@ def attn_times(case, iters: int, plain_iters: int, bwd: bool) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    B, S, Hq, n_kv, D, causal, window, prefix = case
-    mask = dict(causal=causal, window=window, prefix=prefix)
+    B, S, Hq, n_kv, D = case[:5]
+    mask = case_mask(case)
     gen = torch.Generator(device="cuda").manual_seed(12)
     (q, k, v), (q5, k4, v4) = make_qkv(case, torch.bfloat16, gen)
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-    allow = fa._allow(S, S, causal, window, prefix, "cuda")
+    allow = fa._allow(S, case_sk(case), **mask, device="cuda")
     sdpa_kw = dict(enable_gqa=True) if n_kv < Hq else {}
-    if window or prefix:
+    if mask["window"] or mask["prefix"]:
         sdpa_kw["attn_mask"] = allow
     else:
-        sdpa_kw["is_causal"] = causal
+        sdpa_kw["is_causal"] = mask["causal"]
     r = {"ms": cuda_ms(lambda: fa.flash_fwd(q5, k4, v4, **mask),
                        iters=iters),
          "plain_ms": cuda_ms(lambda: fa.flash_fwd_reference(
@@ -1941,6 +2143,33 @@ def phase_hybrid_kernel_times() -> dict:
                                       plain_iters=5, bwd=True),
             "train_shape": attn_times(HYBRID_TRAIN_CASE, iters=5,
                                       plain_iters=2, bwd=True)}
+
+
+def phase_encdec_kernel_times() -> dict:
+    """flash_fwd and the backward pair at the encoder-decoder's D = 64
+    shapes (16 MHA heads): the decoder's causal self-attention serving
+    (B=4 x 512) and training (B=2 x 2048), the bidirectional encoder and
+    cross-attention training (B=2 x 2048); and the forward of the decode
+    identity's cross-attention, 513 queries over 512 keys."""
+    return {"serve_shape": attn_times(ENCDEC_SERVE_CASE, iters=20,
+                                      plain_iters=5, bwd=True),
+            "train_shape": attn_times(ENCDEC_TRAIN_CASE, iters=5,
+                                      plain_iters=2, bwd=True),
+            "bidir_train_shape": attn_times(ENCDEC_BIDIR_TRAIN_CASE,
+                                            iters=5, plain_iters=2,
+                                            bwd=True),
+            "cross_shape": attn_times(ENCDEC_CROSS_CASE, iters=20,
+                                      plain_iters=5, bwd=False)}
+
+
+def phase_vlm_kernel_times() -> dict:
+    """flash_fwd and the backward pair at the VLM's shapes (8 q heads over
+    1 KV head of 256, G = 8, causal with a 256-position prefix): serving
+    (B=4 x 1024) and training (B=2 x 4096)."""
+    return {"serve_shape": attn_times(VLM_SERVE_CASE, iters=20,
+                                      plain_iters=5, bwd=True),
+            "train_shape": attn_times(VLM_TRAIN_CASE, iters=5, plain_iters=2,
+                                      bwd=True)}
 
 
 def phase_storage_kernel_times(tree: dict) -> dict:
@@ -2108,6 +2337,14 @@ def main() -> int:
     print(json.dumps({"hybrid_serve": hybrid_serve_run, "card": card}))
     hybrid_train_run = phase_hybrid_train()
     print(json.dumps({"hybrid_train": hybrid_train_run, "card": card}))
+    encdec_serve_run = phase_encdec_serve()
+    print(json.dumps({"encdec_serve": encdec_serve_run, "card": card}))
+    encdec_train_run = phase_encdec_train()
+    print(json.dumps({"encdec_train": encdec_train_run, "card": card}))
+    vlm_serve_run = phase_vlm_serve()
+    print(json.dumps({"vlm_serve": vlm_serve_run, "card": card}))
+    vlm_train_run = phase_vlm_train()
+    print(json.dumps({"vlm_train": vlm_train_run, "card": card}))
     ckpt_run = phase_ckpt_train()
     saved = ckpt_run.pop("copy")
     stripe_run = phase_stripe(saved)
@@ -2123,18 +2360,24 @@ def main() -> int:
     print(json.dumps({"moe_kernel_times": mt, "card": card}))
     ht = phase_hybrid_kernel_times()
     print(json.dumps({"hybrid_kernel_times": ht, "card": card}))
+    et = phase_encdec_kernel_times()
+    print(json.dumps({"encdec_kernel_times": et, "card": card}))
+    vt = phase_vlm_kernel_times()
+    print(json.dumps({"vlm_kernel_times": vt, "card": card}))
     print(json.dumps({"ckpt_train": {
         k: v for k, v in ckpt_run.items()
         if k in ("result", "run_s", "check_s", "launches", "timings",
                  "peak_mem_gb", "host_after")}, "card": card}))
-    train_runs = (train_run, moe_train_run, ssm_train_run, hybrid_train_run)
+    train_runs = (train_run, moe_train_run, ssm_train_run, hybrid_train_run,
+                  encdec_train_run, vlm_train_run)
     tl = {k: sum(r["launches"][k] for r in train_runs)
           for k in train_run["launches"]}
-    # the G = 16 shapes of the MoE and hybrid slices, beside the bound and
-    # SDPA
-    g16 = lambda key: {f"{key}_{fam}_{shape}_shape": t[f"{shape}_shape"][key]
-                       for fam, t in (("moe", mt), ("hybrid", ht))
-                       for shape in ("serve", "train")}
+    # the shapes of the MoE, hybrid, encoder-decoder and VLM slices, beside
+    # the bound and SDPA
+    g16 = lambda key: {f"{key}_{fam}_{shape}": t[shape][key]
+                       for fam, t in (("moe", mt), ("hybrid", ht),
+                                      ("encdec", et), ("vlm", vt))
+                       for shape in t if key in t[shape]}
     bwd_plain = tt["flash_bwd_plain_pair_ms"]  # the twin computes the pair
     sdpa_bwd = tt["sdpa_backward_ms"]          # likewise
     qt, dt = tt["quantize_per_step"], tt["dequantize_per_step"]
@@ -2144,7 +2387,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:92",
         "launches": slice_run["flash_fwd_launches"] + tl["flash_fwd"]
         + sum(n["flash_fwd"] for run in (offload_run, moe_serve_run,
-                                         hybrid_serve_run)
+                                         hybrid_serve_run, encdec_serve_run,
+                                         vlm_serve_run)
               for n in run["launches"].values()),
         "max_abs_err": max(slice_err, fwd_train_err), "ms": times["ms"],
         "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],

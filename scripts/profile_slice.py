@@ -7,22 +7,31 @@
     PYTHONPATH=src python3 scripts/profile_slice.py --arch mamba2-370m
     PYTHONPATH=src python3 scripts/profile_slice.py \
         --arch recurrentgemma-9b --train-layers 20
+    PYTHONPATH=src python3 scripts/profile_slice.py \
+        --arch seamless-m4t-large-v2 --optimizer adamw
+    PYTHONPATH=src python3 scripts/profile_slice.py \
+        --arch paligemma-3b --optimizer adamw
 
 Builds the slices that chip_smoke.py drives (an architecture at full
 width, deepseek-7b by default, bf16, random weights from a seeded
 generator, ``attn_impl="flash_pallas"``, its depth cut where asked):
-serving is B=4 prompts of 1024 tokens, one prefill and a few greedy decode
-steps; training is one ``make_train_step`` step (Adafactor, int8 gradient
-compression, remat) on B=2 x 4096 tokens.  Each phase is warmed up, timed
+serving is B=4 prompts of a 1024-position budget, one prefill and a few
+greedy decode steps; training is one ``make_train_step`` step (Adafactor
+unless ``--optimizer`` says otherwise, int8 gradient compression, remat)
+on B=2 x 4096.  A budget splits as the reference's ``text_len`` splits it:
+the VLM's 256 stub patch embeddings before its tokens, the
+encoder-decoder's stub frame embeddings (half) for its encoder and tokens
+(half) for its decoder.  Each phase is warmed up, timed
 once without the profiler, then traced with ``torch.profiler`` (CPU and
 CUDA activities).  For each phase it prints one JSON line: the host-clock
 wall time with and without the profiler, the device's busy time (the union
 of kernel intervals) and idle share, launches, and device time by kernel
-category and by kernel name.  For the MoE, SSM and hybrid architectures the
-model's stages run inside named profiler ranges while the script runs:
-``moe_ffn``'s router, dispatch, experts and combine; the SSD layer; the
-hybrid's rec layers (their fp32 gate GEMMs and the log-depth scan in
-ranges of their own), local attention and MLPs.  The line then adds the
+category and by kernel name.  The model's stages run inside named profiler
+ranges while the script runs: ``moe_ffn``'s router, dispatch, experts and
+combine; the SSD layer; the hybrid's rec layers (their fp32 gate GEMMs and
+the log-depth scan in ranges of their own), local attention and MLPs; the
+encoder-decoder's encoder and decoder layers, their MLPs and decode
+attention; the VLM's attention and MLPs.  The line then adds the
 device time of the kernels launched in each range (the innermost one: the
 forward, and its recompute under remat) and of those launched by each
 autograd backward node.  Needs a CUDA card.
@@ -84,6 +93,13 @@ RANGES = {
                ("transformer", "_apply_attn_block", "local_attn"),
                ("layers", "attention_decode", "local_attn"),
                ("layers", "apply_mlp", "mlp")),
+    "encdec": (("transformer", "_enc_block", "encoder"),
+               ("transformer", "_cross_block", "decoder"),
+               ("layers", "attention_decode", "self_attn_decode"),
+               ("layers", "apply_mlp", "mlp")),
+    "vlm": (("transformer", "_apply_attn_block", "attn"),
+            ("layers", "attention_decode", "attn"),
+            ("layers", "apply_mlp", "mlp")),
 }
 RANGE = tuple(f"{family}." for family in RANGES)
 BACKWARD = "autograd::engine::evaluate_function: "
@@ -153,17 +169,26 @@ def summarize(phase: str, prof, wall_ms: float, plain_wall_ms: float,
             "device_ms_by_range": device_ms_by_range(prof)}
 
 
+def make_batch(cfg, gen, B: int, S: int) -> dict:
+    """B rows for a budget of S positions (``make_inputs``): the tokens,
+    then the VLM's patch or the encoder-decoder's frame embeddings."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import make_inputs
+    return make_inputs(gen, cfg, ShapeConfig("slice", S, B, "prefill"),
+                       device="cuda")
+
+
 def profile_serve(params, cfg, gen, decode_steps, timed, traced, card):
     import torch
     from repro_torch.serve import make_decode_step, make_prefill_step
-    B, S = 4, 1024
-    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
-                            device="cuda", dtype=torch.int32)
+    batch = make_batch(cfg, gen, 4, 1024)
+    # the decoder's first position, after the VLM's patches
+    S = batch["tokens"].shape[1] + cfg.n_prefix_tokens
     prefill = make_prefill_step(cfg, pad_to=S + 32, device="cuda")
     decode = make_decode_step(cfg, device="cuda")
 
     def run_prefill():
-        return prefill(params, {"tokens": prompts})
+        return prefill(params, batch)
 
     def run_decode(cache, tok):
         for t in range(decode_steps):
@@ -190,23 +215,20 @@ def profile_serve(params, cfg, gen, decode_steps, timed, traced, card):
     torch.cuda.empty_cache()
 
 
-def profile_train(params, cfg, gen, timed, traced, card):
-    import torch
+def profile_train(params, cfg, gen, timed, traced, card, optimizer):
     from repro_torch.train import make_train_step, opt_init
-    cfg = dataclasses.replace(cfg, optimizer="adafactor",
+    cfg = dataclasses.replace(cfg, optimizer=optimizer,
                               grad_compression=True, remat=True)
     B, S = 2, 4096
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
-                                     generator=gen, device="cuda",
-                                     dtype=torch.int32)}
+    batch = make_batch(cfg, gen, B, S)
     state = opt_init(cfg.optimizer, params)
     step = make_train_step(cfg, device="cuda")
     run = lambda: step(params, state, batch)
     run()                                               # warm-up
     _, plain_ms = timed(run)
     _, wall_ms, prof = traced(run)
-    print(json.dumps(summarize(f"train step ({B}x{S})", prof, wall_ms,
-                               plain_ms, card)))
+    print(json.dumps(summarize(f"train step ({B}x{S}, {optimizer})", prof,
+                               wall_ms, plain_ms, card)))
 
 
 def main() -> int:
@@ -217,6 +239,9 @@ def main() -> int:
                     help="depth of the serving slice (0: the arch's own)")
     ap.add_argument("--train-layers", type=int, default=0,
                     help="depth of the training slice (0: the arch's own)")
+    ap.add_argument("--optimizer", default="adafactor",
+                    choices=("adafactor", "adamw"),
+                    help="the training step's optimizer")
     args = ap.parse_args()
 
     import torch
@@ -261,7 +286,8 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
         params = init_model(gen, train_cfg, device="cuda")
-    profile_train(params, train_cfg, gen, timed, traced, card)
+    profile_train(params, train_cfg, gen, timed, traced, card,
+                  args.optimizer)
     return 0
 
 

@@ -1,13 +1,15 @@
 """Serving paths in torch: prefill (build the cache over a full prompt)
-and decode (one token against the cache), for the dense, MoE, SSM and
-hybrid families.
+and decode (one token against the cache), for every family.
 
 Counterpart of the JAX package's models/decode.py.  Caches are dicts of
 layer-stacked tensors: (L, B, S_cache, Hkv, D) k/v for attention layers
 (SWA and the hybrid's local attention allocate ring caches of window
 length, so decoding costs O(window) per step), the SSM's fp32 (L, B, H, N,
 P) state and conv tail, the hybrid's fp32 (n_rec, B, w) RG-LRU state and
-conv tail beside its local k/v.  Decode writes the new k/v, states and
+conv tail beside its local k/v, the encoder-decoder's self-attention k/v
+beside its cross-attention ``xk``/``xv`` over the encoder's output (which
+decode reads and never writes).  The VLM's cache is the dense one over the
+prefix and the text.  Decode writes the new k/v, states and
 conv tails into the cache in place (see ``layers.attention_decode``) and
 returns the same dict.
 """
@@ -60,6 +62,14 @@ def cache_spec(cfg, seq_len: int, batch: int) -> dict:
                 "rec_conv": TensorSpec((n_rec, batch, cfg.conv_width - 1, w),
                                        dt),
                 "k": TensorSpec(kv, dt), "v": TensorSpec(kv, dt)}
+    if cfg.family == "encdec":
+        # the reference's split: Se = S // 2 frames, Sd = S - Se tokens
+        # (input_specs gives the tokens S // 2; both as in the reference)
+        Se = seq_len // 2
+        Sd = seq_len - Se
+        kv = lambda n: TensorSpec((cfg.dec_layers, batch, n, cfg.n_kv_heads,
+                                   cfg.head_dim), dt)
+        return {"k": kv(Sd), "v": kv(Sd), "xk": kv(Se), "xv": kv(Se)}
     shape = (cfg.n_layers, batch, cache_len(cfg, seq_len), cfg.n_kv_heads,
              cfg.head_dim)
     return {"k": TensorSpec(shape, dt), "v": TensorSpec(shape, dt)}
@@ -100,6 +110,8 @@ def forward_decode(params: Params, cfg, cache: dict, tokens: torch.Tensor,
         return x, cache
     if cfg.family == "hybrid":
         return _hybrid_decode(params, cfg, cache, x, pos, n_heads), cache
+    if cfg.family == "encdec":
+        return _encdec_decode(params, cfg, cache, x, pos, n_heads), cache
     for i in range(cfg.n_layers):
         lp = T.layer(params["blocks"], i)
         x = _attn_decode_block(lp, x, cfg, cache, i, pos, n_heads)
@@ -141,6 +153,26 @@ def _hybrid_decode(params, cfg, cache, x, pos, n_heads):
     return x
 
 
+def _encdec_decode(params, cfg, cache, x, pos, n_heads):
+    """The decoder's layers: self-attention against the ring cache, then
+    cross-attention against the cached encoder k/v (the reference's plain
+    softmax, no mask), then the MLP."""
+    for i in range(cfg.dec_layers):
+        lp = T.layer(params["decoder"], i)
+        h = L.rms_norm(x, lp["norm1"])
+        out, _, _ = L.attention_decode(lp["attn"], h, cfg, cache["k"][i],
+                                       cache["v"][i], pos, n_heads)
+        x = x + out
+        h = L.rms_norm(x, lp["norm3"])
+        q = L._split_heads(h @ lp["xattn"]["wq"], n_heads, cfg.head_dim)
+        out = L.gqa_scores_softmax_v(q, cache["xk"][i].to(q.dtype),
+                                     cache["xv"][i].to(q.dtype), None,
+                                     cfg.n_kv_heads)
+        x = x + out.reshape(*x.shape[:2], -1) @ lp["xattn"]["wo"]
+        x, _ = T._apply_mlp_or_moe(lp, x, cfg)
+    return x
+
+
 # ======================================================================
 # prefill: full prompt -> cache
 # ======================================================================
@@ -167,6 +199,9 @@ def forward_prefill(params: Params, cfg, batch, pad_to: int | None = None):
     n_heads = T.params_n_heads(params, cfg)
     x, positions = T._embed_inputs(params, cfg, batch)
     pad_to = pad_to if pad_to is not None else x.shape[1] + 1
+    if cfg.family == "encdec":
+        return _encdec_prefill(params, cfg, batch["src_emb"], x, positions,
+                               n_heads, pad_to)
     if cfg.family == "ssm":
         states, convs = [], []
         for i in range(cfg.n_layers):
@@ -177,11 +212,12 @@ def forward_prefill(params: Params, cfg, batch, pad_to: int | None = None):
     if cfg.family == "hybrid":
         return _hybrid_prefill(params, cfg, x, positions, n_heads, pad_to)
     Lc = cache_len(cfg, max(x.shape[1], pad_to))
+    prefix = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
     ks, vs = [], []
     for i in range(cfg.n_layers):
         x, _, (k, v) = T._dense_block(T.layer(params["blocks"], i), x, cfg,
                                       positions, n_heads=n_heads,
-                                      window=cfg.swa_window, prefix=0,
+                                      window=cfg.swa_window, prefix=prefix,
                                       collect_kv=True)
         ks.append(_fit_cache_seq(k[None], Lc)[0])
         vs.append(_fit_cache_seq(v[None], Lc)[0])
@@ -211,3 +247,25 @@ def _hybrid_prefill(params, cfg, x, positions, n_heads, pad_to):
         x, hs[j], cs[j] = T._rec_block(T.layer(rec, j), x, cfg)
     return x, {"rec_h": torch.stack(hs), "rec_conv": torch.stack(cs),
                "k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def _encdec_prefill(params, cfg, src_emb, x, positions, n_heads, pad_to):
+    """The encoder over the frames, then the decoder over the tokens ``x``;
+    the self-attention cache fitted to ``pad_to`` slots, the cross cache
+    kept at the encoder's length."""
+    enc_x, enc_pos = T._encoder_input(cfg, src_emb)
+    for i in range(cfg.enc_layers):
+        enc_x, _ = T._enc_block(T.layer(params["encoder"], i), enc_x, cfg,
+                                enc_pos, n_heads=n_heads)
+    ks, vs, xks, xvs = [], [], [], []
+    for i in range(cfg.dec_layers):
+        x, _, ((k, v), (xk, xv)) = T._cross_block(
+            T.layer(params["decoder"], i), x, enc_x, cfg, positions,
+            n_heads=n_heads, collect_kv=True)
+        ks.append(k)
+        vs.append(v)
+        xks.append(xk)
+        xvs.append(xv)
+    return x, {"k": _fit_cache_seq(torch.stack(ks), pad_to),
+               "v": _fit_cache_seq(torch.stack(vs), pad_to),
+               "xk": torch.stack(xks), "xv": torch.stack(xvs)}

@@ -2,7 +2,10 @@
 
 Counterpart of the JAX package's models/model.py.  Every entry point runs
 on the CUDA card unless the caller passes ``device="cpu"``; random draws
-come from an explicit ``torch.Generator`` on that device.
+come from an explicit ``torch.Generator`` on that device.  The modality
+front ends are stubs, as in the reference: a VLM cell feeds precomputed
+patch embeddings (``prefix_emb``), an encoder-decoder cell frame
+embeddings (``src_emb``).
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ from ..configs.base import ModelConfig, ShapeConfig
 from ..device import resolve_device
 from ..tree import tree_leaves
 from . import decode as D
+from . import layers as L
 from . import transformer as T
 from .decode import TensorSpec
 
@@ -45,12 +49,21 @@ def text_len(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
-    """TensorSpec stand-ins for every model input of this cell (the
-    families this port has reached take tokens only)."""
+    """TensorSpec stand-ins for every model input of this cell: the tokens,
+    and the VLM's ``prefix_emb`` or the encoder-decoder's ``src_emb`` in
+    the params' dtype, splitting the seq_len budget as ``text_len`` does."""
     T._require_ported(cfg)
     B, S = shape.global_batch, shape.seq_len
     if shape.kind in ("train", "prefill"):
-        return {"tokens": TensorSpec((B, text_len(cfg, S)), torch.int32)}
+        St = text_len(cfg, S)
+        batch = {"tokens": TensorSpec((B, St), torch.int32)}
+        dt = L._dtype(cfg)
+        if cfg.family == "vlm":
+            batch["prefix_emb"] = TensorSpec(
+                (B, cfg.n_prefix_tokens, cfg.d_model), dt)
+        if cfg.family == "encdec":
+            batch["src_emb"] = TensorSpec((B, S - St, cfg.d_model), dt)
+        return batch
     return {
         "tokens": TensorSpec((B, 1), torch.int32),
         "cache": D.cache_spec(cfg, S, B),

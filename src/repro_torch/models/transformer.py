@@ -1,5 +1,5 @@
-"""Architecture assembly in torch: the dense, MoE, Mamba2 SSD and Griffin
-hybrid decoder-only families.
+"""Architecture assembly in torch: the dense, MoE, Mamba2 SSD, Griffin
+hybrid and prefix-LM VLM decoder-only families, and the encoder-decoder.
 
 Counterpart of the JAX package's models/transformer.py.  Layer params are
 stacked with a leading ``L`` dim, as in JAX; ``lax.scan`` over the stack
@@ -10,8 +10,13 @@ the hybrid.  A MoE block (qwen3-moe, arctic) is the dense block with
 ``moe.moe_ffn`` in place of the MLP; its aux loss is summed over the
 layers.  The hybrid keeps its rec and local-attention layers in two stacks
 (``rec_blocks``, ``attn_blocks``) and applies them as the reference does:
-super-blocks, then the leftover rec layers.  The encdec and vlm families
-are not ported; building a model for them raises ``NotImplementedError``.
+super-blocks, then the leftover rec layers.  The VLM prepends its stub
+patch embeddings (``prefix_emb``) to the text and attends to them
+bidirectionally (the prefix-LM mask).  The encoder-decoder keeps an
+``encoder`` stack of bidirectional attention layers over the stub frame
+embeddings (``src_emb``) and a ``decoder`` stack of "cross" layers: causal
+self-attention, cross-attention to the encoder's output (no final norm,
+no rope), then the MLP.
 
   forward_train(params, cfg, batch) -> (hidden, aux_loss)
 """
@@ -31,7 +36,7 @@ from .attention_flash import blockwise_attention
 
 Params = dict
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 
 
 def _require_ported(cfg) -> None:
@@ -53,10 +58,13 @@ def _block_init(gen: torch.Generator, cfg, kind: str, tp_pad: int) -> Params:
     if kind == "rec":
         return {"norm1": ones(), "rec": R.init_rglru_block(gen, cfg),
                 "norm2": ones(), "mlp": L.init_mlp(gen, cfg)}
-    if kind not in ("attn", "moe", "local_attn"):
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    if kind not in ("attn", "moe", "local_attn", "cross"):
+        raise ValueError(kind)
     p = {"norm1": ones(), "attn": L.init_attention(gen, cfg, tp_pad),
          "norm2": ones()}
+    if kind == "cross":     # the encoder-decoder's decoder block
+        p["xattn"] = L.init_attention(gen, cfg, tp_pad)
+        p["norm3"] = ones()
     if kind == "moe":
         p["moe"] = M.init_moe(gen, cfg)
     else:
@@ -107,6 +115,10 @@ def init_model(gen: torch.Generator, cfg, tp_pad: int = 1) -> Params:
     padded up to a multiple of it (zero-weight pad heads)."""
     _require_ported(cfg)
     params: Params = {"embed": L.init_embedding(gen, cfg)}
+    if cfg.family == "encdec":
+        params["encoder"] = _stack(gen, cfg, "attn", cfg.enc_layers, tp_pad)
+        params["decoder"] = _stack(gen, cfg, "cross", cfg.dec_layers, tp_pad)
+        return params
     if cfg.family == "hybrid":
         n_super, n_left = hybrid_layout(cfg)
         params["rec_blocks"] = _stack(gen, cfg, "rec", 2 * n_super + n_left,
@@ -152,14 +164,19 @@ def _grad_slot(a: torch.Tensor, i: int) -> torch.Tensor:
 # ======================================================================
 
 def _apply_attn_block(p: Params, x, cfg, positions, *, n_heads, window=0,
-                      prefix=0, causal=True):
+                      prefix=0, causal=True, kv_override=None):
+    """-> (x + attention(norm1(x)), (k, v)).  With ``kv_override`` (the
+    encoder's output, cross-attention) k and v are its projections, taken
+    as it is, and neither q nor k is rotated."""
     h = L.rms_norm(x, p["norm1"])
     B, Sq, d = h.shape
+    src = h if kv_override is None else kv_override
     q = L._split_heads(h @ p["attn"]["wq"], n_heads, cfg.head_dim)
-    k = L._split_heads(h @ p["attn"]["wk"], cfg.n_kv_heads, cfg.head_dim)
-    v = L._split_heads(h @ p["attn"]["wv"], cfg.n_kv_heads, cfg.head_dim)
-    q = L.apply_rope(q, positions, cfg.rotary_pct, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rotary_pct, cfg.rope_theta)
+    k = L._split_heads(src @ p["attn"]["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = L._split_heads(src @ p["attn"]["wv"], cfg.n_kv_heads, cfg.head_dim)
+    if kv_override is None:
+        q = L.apply_rope(q, positions, cfg.rotary_pct, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rotary_pct, cfg.rope_theta)
     if cfg.attn_impl == "flash_pallas":
         from ..kernels.ops import flash_attention
         out = flash_attention(q, k, v, cfg.n_kv_heads, causal, window,
@@ -197,6 +214,27 @@ def _dense_block(p, x, cfg, positions, *, n_heads, window, prefix,
     return x, aux, (kv if collect_kv else None)
 
 
+def _enc_block(p, x, cfg, positions, *, n_heads):
+    """-> (x', aux): the encoder's bidirectional attention and MLP."""
+    x, _ = _apply_attn_block(p, x, cfg, positions, n_heads=n_heads,
+                             causal=False)
+    return _apply_mlp_or_moe(p, x, cfg)
+
+
+def _cross_block(p, x, enc_out, cfg, positions, *, n_heads,
+                 collect_kv=False):
+    """-> (x', aux, ((k, v), (xk, xv)) or None): the decoder's causal
+    self-attention (norm1), cross-attention to ``enc_out`` (norm3), MLP
+    (norm2)."""
+    x, kv = _apply_attn_block(p, x, cfg, positions, n_heads=n_heads,
+                              causal=True)
+    x, xkv = _apply_attn_block({"attn": p["xattn"], "norm1": p["norm3"]}, x,
+                               cfg, positions, n_heads=n_heads, causal=False,
+                               kv_override=enc_out)
+    x, aux = _apply_mlp_or_moe(p, x, cfg)
+    return x, aux, ((kv, xkv) if collect_kv else None)
+
+
 def _rec_block(p, x, cfg, state=None, conv_state=None):
     """-> (x', h_final, conv tail): the RG-LRU block and the MLP."""
     h = L.rms_norm(x, p["norm1"])
@@ -229,8 +267,12 @@ def _sinusoidal(positions, d):
 
 
 def _embed_inputs(params, cfg, batch):
-    """Returns (x (B,S,d), positions (B,S))."""
-    x = L.shard_batch(L.embed(params["embed"], batch["tokens"]))
+    """Returns (x (B,S,d), positions (B,S)); the VLM's stub patch
+    embeddings come first, and positions run over them too."""
+    x = L.embed(params["embed"], batch["tokens"])
+    if cfg.family == "vlm":
+        x = torch.cat([batch["prefix_emb"].to(x.dtype), x], dim=1)
+    x = L.shard_batch(x)
     B, Sx = x.shape[:2]
     positions = torch.arange(Sx, device=x.device)[None].expand(B, Sx)
     if cfg.rotary_pct == 0.0:
@@ -238,8 +280,32 @@ def _embed_inputs(params, cfg, batch):
     return x, positions
 
 
+def _encoder_input(cfg, src_emb):
+    """The encoder's input: the stub frame embeddings in the params' dtype
+    plus the sinusoidal table; -> (x (B,Se,d), positions (B,Se))."""
+    x = src_emb.to(L._dtype(cfg))
+    B, Se, d = x.shape
+    positions = torch.arange(Se, device=x.device)[None].expand(B, Se)
+    return x + _sinusoidal(positions, d).to(x.dtype), positions
+
+
+def _run_bodies(bodies, x, checkpointed: bool, *extra):
+    """Apply (body, layer params) pairs in order -> (x, the summed aux).
+    With ``checkpointed`` each body runs under ``checkpoint``; ``extra``
+    inputs (the encoder's output) go into every body as explicit inputs,
+    so their gradient is summed over the bodies."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for body, lp in bodies:
+        if checkpointed:
+            x, aux_i = checkpoint(body, lp, x, *extra, use_reentrant=False)
+        else:
+            x, aux_i = body(lp, x, *extra)
+        aux = aux + aux_i
+    return x, aux
+
+
 def forward_train(params: Params, cfg, batch, n_groups: int = 1):
-    """-> (hidden (B,S,d), aux_loss).
+    """-> (hidden (B,S,d), aux_loss); S includes the VLM's prefix.
 
     Differentiable in the params that require grad: a backward pass leaves
     each leaf's gradient in its ``.grad``, the stacked block leaves
@@ -250,8 +316,8 @@ def forward_train(params: Params, cfg, batch, n_groups: int = 1):
     _require_ported(cfg)
     n_heads = params_n_heads(params, cfg)
     x, positions = _embed_inputs(params, cfg, batch)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     grad = torch.is_grad_enabled()
+    checkpointed = grad and cfg.remat
     zero = lambda: torch.zeros((), dtype=torch.float32, device=x.device)
 
     def take(stack, i):
@@ -259,6 +325,23 @@ def forward_train(params: Params, cfg, batch, n_groups: int = 1):
             return tree_map(lambda a: _grad_slot(a, i), stack)
         return layer(stack, i)
 
+    if cfg.family == "encdec":
+        enc_x, enc_pos = _encoder_input(cfg, batch["src_emb"])
+
+        def enc(lp, xx):
+            return _enc_block(lp, xx, cfg, enc_pos, n_heads=n_heads)
+
+        def dec(lp, xx, enc_out):
+            y, aux_i, _ = _cross_block(lp, xx, enc_out, cfg, positions,
+                                       n_heads=n_heads)
+            return y, aux_i
+        # the encoder's output goes into every decoder layer as it is
+        enc_out, _ = _run_bodies(((enc, take(params["encoder"], i))
+                                  for i in range(cfg.enc_layers)), enc_x,
+                                 checkpointed)
+        return _run_bodies(((dec, take(params["decoder"], i))
+                            for i in range(cfg.dec_layers)), x,
+                           checkpointed, enc_out)
     if cfg.family == "ssm":
         def block(lp, xx):
             return _ssm_block(lp, xx, cfg)[0], zero()
@@ -285,28 +368,23 @@ def forward_train(params: Params, cfg, batch, n_groups: int = 1):
         bodies += [(leftover, take(rec, 2 * n_super + t))
                    for t in range(n_left)]
     else:
+        prefix = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
+
         def block(lp, xx):
             y, aux_i, _ = _dense_block(lp, xx, cfg, positions,
                                        n_heads=n_heads,
-                                       window=cfg.swa_window, prefix=0,
+                                       window=cfg.swa_window, prefix=prefix,
                                        n_groups=n_groups)
             return y, aux_i
         bodies = ((block, take(params["blocks"], i))
                   for i in range(cfg.n_layers))
-
-    for body, lp in bodies:
-        if grad and cfg.remat:
-            x, aux_i = checkpoint(body, lp, x, use_reentrant=False)
-        else:
-            x, aux_i = body(lp, x)
-        aux = aux + aux_i
-    return x, aux
+    return _run_bodies(bodies, x, checkpointed)
 
 
 def params_n_heads(params: Params, cfg) -> int:
     """Recover the (possibly TP-padded) q-head count from the weights."""
     if cfg.family == "ssm":
         return 0
-    stack = params["attn_blocks"] if cfg.family == "hybrid" \
-        else params["blocks"]
-    return stack["attn"]["wq"].shape[-1] // cfg.head_dim
+    stack = {"hybrid": "attn_blocks", "encdec": "decoder"}.get(cfg.family,
+                                                               "blocks")
+    return params[stack]["attn"]["wq"].shape[-1] // cfg.head_dim

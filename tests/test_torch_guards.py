@@ -150,27 +150,34 @@ def test_step_refuses_tokens_on_another_device(factory):
 @pytest.mark.parametrize("family_arch", ["seamless-m4t-large-v2",
                                          "paligemma-3b"])
 def test_unported_families_raise(family_arch):
+    """A family outside ``PORTED_FAMILIES`` (the configs' "audio", which no
+    architecture uses) raises ``NotImplementedError``; the encdec and vlm
+    families these architectures belong to are ported."""
+    import dataclasses
     from repro_torch.configs import ARCHS, smoke_variant
     from repro_torch.models import init_model
+    from repro_torch.models.transformer import PORTED_FAMILIES
+    cfg = smoke_variant(ARCHS[family_arch])
+    assert cfg.family in PORTED_FAMILIES
     with pytest.raises(NotImplementedError):
         init_model(torch.Generator().manual_seed(0),
-                   smoke_variant(ARCHS[family_arch]), device="cpu")
+                   dataclasses.replace(cfg, family="audio"), device="cpu")
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_init_model_raises_only_for_encdec_and_vlm(arch):
-    """Every architecture's smoke model builds but for the two families
-    still to port, which raise ``NotImplementedError``."""
+    """Every architecture's smoke model builds, the encdec and vlm
+    families' included: all six families are ported, and none raises."""
     from repro_torch.configs import smoke_variant
     from repro_torch.models import init_model
+    from repro_torch.models.transformer import PORTED_FAMILIES
     cfg = smoke_variant(ARCHS[arch])
-    build = lambda: init_model(torch.Generator().manual_seed(0), cfg,
-                               device="cpu")
-    if cfg.family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError):
-            build()
-    else:
-        assert build()["embed"]["tok"].shape[1] == cfg.d_model
+    assert sorted(PORTED_FAMILIES) == sorted(
+        {a.family for a in ARCHS.values()})
+    params = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert params["embed"]["tok"].shape[1] == cfg.d_model
+    if cfg.family == "encdec":
+        assert sorted(params) == ["decoder", "embed", "encoder"]
 
 
 def test_flash_cvjp_runs_and_matches_flash():

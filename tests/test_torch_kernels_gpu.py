@@ -35,6 +35,20 @@ CASES = [
     (2, 4096, 64, 4, 128, True, 0, 0),   # qwen3-moe training: G = 16
     (4, 1024, 16, 1, 256, True, 2048, 0),  # recurrentgemma serving: MQA
     (2, 4096, 16, 1, 256, True, 2048, 0),  # its training: the window bites
+    (4, 512, 16, 16, 64, True, 0, 0),    # seamless serving: MHA, D = 64
+    (4, 512, 16, 16, 64, False, 0, 0),   # its encoder: bidirectional
+    (2, 2048, 16, 16, 64, True, 0, 0),   # seamless training
+    (4, 1024, 8, 1, 256, True, 0, 256),  # paligemma serving: prefix 256
+    (2, 4096, 8, 1, 256, True, 0, 256),  # paligemma training
+]
+# Cross-attention, bidirectional with Sq != Sk: (B, Sq, Sk, Hq, n_kv, D).
+# seamless's decode identity (513 decoder queries over 512 encoder keys),
+# ragged lengths either way, and D = 256 with G = 8.
+CROSS_CASES = [
+    (4, 513, 512, 16, 16, 64),
+    (2, 2048, 1000, 16, 16, 64),
+    (2, 200, 333, 4, 2, 128),
+    (1, 77, 300, 8, 1, 256),
 ]
 # fp32: the reference tests' 3e-4 (the scalar fp32 kernel).  bf16: the
 # tensor-core kernel sums exact products of the bf16 inputs in fp32, rounds
@@ -238,6 +252,42 @@ def test_flash_bwd_kernels_match_plain_version(cuda, case, dtype):
         _assert_row_blocks_close(g, w, dtype, name)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CROSS_CASES)
+def test_flash_kernels_at_sq_ne_sk_match_plain_version(cuda, case, dtype):
+    """The forward kernel and then the backward pair fed its own out and
+    lse, bidirectional, queries and keys of different lengths, each
+    against its plain version elementwise and in 8 row blocks."""
+    B, Sq, Sk, Hq, n_kv, D = case
+    gen = torch.Generator(device=cuda).manual_seed(Sq + Sk)
+    mk = lambda *shape: torch.randn(shape, generator=gen, device=cuda) \
+        .to(dtype)
+    five = lambda x: x.reshape(B, Sq, n_kv, Hq // n_kv, D) \
+        .permute(0, 2, 3, 1, 4)
+    q5, do5 = five(mk(B, Sq, Hq, D)), five(mk(B, Sq, Hq, D))
+    k4 = mk(B, Sk, n_kv, D).permute(0, 2, 1, 3)
+    v4 = mk(B, Sk, n_kv, D).permute(0, 2, 1, 3)
+    mask = dict(causal=False, window=0, prefix=0)
+    out, lse = fa.flash_fwd(q5, k4, v4, **mask)
+    ref_out, ref_lse = fa.flash_fwd_reference(q5.float(), k4.float(),
+                                              v4.float(), **mask)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref_out, rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-3, atol=1e-3)
+    _assert_row_blocks_close(out, ref_out, dtype, "out")
+    delta = (do5.float() * out.float()).sum(-1)
+    got = fa.flash_bwd(q5, k4, v4, do5, lse, delta, **mask)
+    want = fa.flash_bwd_reference(q5.float(), k4.float(), v4.float(),
+                                  do5.float(), lse, delta, **mask)
+    rtol, atol = GRAD_TOL[dtype]
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape, name
+        scale = 1.0 if dtype == torch.float32 else float(w.abs().max())
+        torch.testing.assert_close(g.float(), w, rtol=rtol,
+                                   atol=atol * scale, msg=name)
+        _assert_row_blocks_close(g, w, dtype, name)
+
+
 def _groups(cuda, dtype, n_groups=64):
     gen = torch.Generator(device=cuda).manual_seed(n_groups)
     x = torch.randn((n_groups, qz.GROUP), generator=gen, device=cuda) * 3
@@ -389,6 +439,53 @@ def test_recurrent_serving_on_the_card_matches_cpu(cuda, arch):
     for got, want in ((h, out["cpu"][0]), (h2, out["cpu"][1]),
                       *((c[k], out["cpu"][2][k]) for k in c)):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "paligemma-3b"])
+def test_encdec_and_vlm_on_the_card_match_cpu(cuda, arch):
+    """The encoder-decoder's and the VLM's smoke prefill, one decode step
+    and the training gradients in fp32 through the kernels, on the card
+    against the CPU from the same params and inputs (summation order only,
+    1e-4), with exact launch counts: one ``flash_fwd`` an encoder layer and
+    two a decoder layer (self and cross) or one a VLM layer in the prefill,
+    none in decode."""
+    from repro_torch.configs import ARCHS, ShapeConfig, smoke_variant
+    from repro_torch.models import (forward_decode, forward_prefill,
+                                    init_model, make_inputs)
+    from repro_torch.train import loss_and_grads
+    from repro_torch.tree import tree_items
+    cfg = dataclasses.replace(smoke_variant(ARCHS[arch]),
+                              attn_impl="flash_pallas")
+    gen = torch.Generator().manual_seed(0)
+    params = init_model(gen, cfg, device="cpu")
+    batch = make_inputs(gen, cfg, ShapeConfig("c", 27, 2, "prefill"),
+                        device="cpu")
+    pos = batch["tokens"].shape[1] + cfg.n_prefix_tokens
+    to = lambda t: {k: to(v) for k, v in t.items()} \
+        if isinstance(t, dict) else t.to(cuda)
+    out = {}
+    for dev, p, b in (("cpu", params, batch), ("cuda", to(params),
+                                                to(batch))):
+        before = fa.LAUNCHES
+        h, c = forward_prefill(p, cfg, b)
+        n_pre = fa.LAUNCHES - before
+        h2, c = forward_decode(p, cfg, c, b["tokens"][:, -1:], pos)
+        loss, _, g = loss_and_grads(p, cfg, b)
+        out[dev] = (h, h2, c, loss, g, n_pre, fa.LAUNCHES - before - n_pre)
+    h, h2, c, loss, g, n_pre, n_rest = out["cuda"]
+    want_pre = cfg.enc_layers + 2 * cfg.dec_layers \
+        if cfg.family == "encdec" else cfg.n_layers
+    assert (n_pre, n_rest) == (want_pre, want_pre)   # decode 0, train fwd
+    for got, want in ((h, out["cpu"][0]), (h2, out["cpu"][1]),
+                      *((c[k], out["cpu"][2][k]) for k in c)):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(loss.cpu(), out["cpu"][3], rtol=1e-5,
+                               atol=1e-6)
+    want = dict(tree_items(out["cpu"][4]))
+    for path, a in tree_items(g):
+        torch.testing.assert_close(a.cpu(), want[path], rtol=1e-4,
+                                   atol=1e-4 * float(want[path].abs().max()),
+                                   msg=path)
 
 
 # ------------------------- checksum, stripe pack -------------------------
