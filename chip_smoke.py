@@ -76,6 +76,17 @@ Phases, each fatal on failure:
    cross), kernel vs blockwise hidden state, decode at S against a prefill
    of S+1 (for seamless the cross-attention of 513 queries over 512
    keys), and the training slice's checks;
+   then the dry-run held against the card (``phase_dryrun``): each of
+   the six training slices above, and deepseek-7b's prefill of B=4 x 1024
+   (run here on the card with exact launch counts, after the peak
+   statistics are reset), counted by ``repro_torch.launch.dryrun`` on the
+   meta device with the same config, depth cut, batch and sequence; each
+   predicted peak (argument + temporary bytes) within DRYRUN_PEAK_REL_TOL
+   of ``max_memory_allocated`` and the step's own bytes (temporary against
+   the card's peak less what it held before the step) within
+   DRYRUN_OWN_ABS_TOL_GB, the counted FLOPs printed against the model
+   FLOPs, no kernel launched by a count; and the host time of a
+   ``flash_fwd`` call through its op against the wrapper's;
 5. drive the checkpointed-training slice through the port's driver
    (``launch.train.run``): deepseek-7b at full width cut to 2 layers,
    the training slice's settings, async checkpoints every 3 steps into the
@@ -300,6 +311,27 @@ QUANT_LEAF = (4096, 11008)
 # against fp32, below the plain bf16 path's 0.068 (PERF.md).  So that
 # family's leaves are held in fp32 at full width and depth and reported in
 # bf16; its loss and grad norm are held in bf16 as every family's.
+# The dry-run against the card (phase_dryrun): the predicted peak (the
+# dry-run's argument + temporary bytes, counted on the meta device) against
+# torch.cuda.max_memory_allocated() of the same step, |pred - card| / card.
+# Fixed before the first card run.  The card's reading also holds the
+# caching allocator's 512-byte rounding and unsplit block tails, cuBLAS's
+# workspace and whatever an earlier phase still holds; the prediction
+# holds none of them.
+DRYRUN_PEAK_REL_TOL = 0.10
+# The step's own bytes: the dry-run's temporary bytes against the card's
+# peak less what the card held just before the step (arguments, cuBLAS's
+# workspaces and the like: 0.105-0.109 GB beyond the arguments), in GB.
+# Set from the first three card runs (NVIDIA H100 80GB HBM3, 700.00 W),
+# which read 0.0094 GB at most (seamless-m4t-large-v2; 0.0021 mamba2-370m,
+# under 1e-5 the rest), identical to the byte in all three; a dry-run that
+# lost remat's saved layer inputs (some 2 GB of deepseek-7b's) misses it
+# 40-fold.
+DRYRUN_OWN_ABS_TOL_GB = 0.05
+# The dry-run's prefill: deepseek-7b at full width and depth, the serving
+# slice's batch and prompt, measured inside phase_dryrun.
+DRYRUN_PREFILL = (SLICE_ARCH, SLICE_BATCH, SLICE_PROMPT)
+
 TRAIN_LOSS_REL_TOL = 3e-4
 TRAIN_GNORM_REL_TOL = 2e-3
 TRAIN_LEAF_REL_TOL = 1e-1
@@ -1857,6 +1889,7 @@ def run_train(cfg, fp32_leaves: bool = False) -> dict:
     first_loss = float(m0["loss"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
 
     # the main path: counts to 0, 3 steps, counts read
     _zero_counters()
@@ -1904,7 +1937,7 @@ def run_train(cfg, fp32_leaves: bool = False) -> dict:
             "step_losses": losses, "grad_norms": norms, "aux_losses": auxes,
             "loss_after": after, "step_ms": step_ms,
             "tokens_per_s": B * S / (step_ms / 1e3), "peak_mem_gb": peak_gb,
-            "model_flops_per_step": flops,
+            "resident_gb": resident_gb, "model_flops_per_step": flops,
             "mfu": flops / (step_ms / 1e3) / BF16_FLOP_PER_S,
             "launches": launches, "compressed_leaves": n_big,
             "kernel_vs_plain": {
@@ -1914,23 +1947,37 @@ def run_train(cfg, fp32_leaves: bool = False) -> dict:
                 for name, c in cmp.items()}}
 
 
+def train_slice_cfg(name: str):
+    """The config each training phase runs (and ``phase_dryrun`` counts):
+    full width, int8 compression and remat, the kernel path where there
+    is attention, Adafactor where AdamW's moments do not fit, the depth
+    cut where the card needs it."""
+    from repro_torch.configs import get_arch
+    kw = dict(attn_impl="flash_pallas", grad_compression=True, remat=True)
+    arch, extra = {
+        "train": (SLICE_ARCH, dict(optimizer="adafactor")),
+        "moe_train": (MOE_ARCH, dict(n_layers=MOE_TRAIN_LAYERS,
+                                     optimizer="adafactor")),
+        "ssm_train": (SSM_ARCH, dict(optimizer="adafactor")),
+        "hybrid_train": (HYBRID_ARCH, dict(n_layers=HYBRID_TRAIN_LAYERS,
+                                           optimizer="adafactor")),
+        "encdec_train": (ENCDEC_ARCH, {}),
+        "vlm_train": (VLM_ARCH, {})}[name]
+    if name == "ssm_train":     # no attention: the config's own attn_impl
+        del kw["attn_impl"]
+    return dataclasses.replace(get_arch(arch), **kw, **extra)
+
+
 def phase_train() -> dict:
     """The training slice: deepseek-7b at full width and depth."""
-    from repro_torch.configs import get_arch
-    return run_train(dataclasses.replace(
-        get_arch(SLICE_ARCH), attn_impl="flash_pallas",
-        optimizer="adafactor", grad_compression=True, remat=True))
+    return run_train(train_slice_cfg("train"))
 
 
 def phase_moe_train() -> dict:
     """The MoE training slice: qwen3-moe-235b-a22b at full width, its depth
     cut to MOE_TRAIN_LAYERS, with the training slice's settings; the aux
     loss must be finite and positive."""
-    from repro_torch.configs import get_arch
-    r = run_train(dataclasses.replace(
-        get_arch(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS,
-        attn_impl="flash_pallas", optimizer="adafactor",
-        grad_compression=True, remat=True))
+    r = run_train(train_slice_cfg("moe_train"))
     if not all(a > 0 for a in r["aux_losses"]):
         fail(f"MoE aux loss not positive: {r['aux_losses']}")
     return r
@@ -1943,20 +1990,14 @@ def phase_encdec_train() -> dict:
     dq and 72 dk/dv a step; the gradient of the encoder's output summed
     over the 24 cross-attention layers); the per-leaf gradients held in
     fp32 (see TRAIN_LEAF_REL_TOL)."""
-    from repro_torch.configs import get_arch
-    return run_train(dataclasses.replace(
-        get_arch(ENCDEC_ARCH), attn_impl="flash_pallas",
-        grad_compression=True, remat=True), fp32_leaves=True)
+    return run_train(train_slice_cfg("encdec_train"), fp32_leaves=True)
 
 
 def phase_vlm_train() -> dict:
     """The VLM training slice: paligemma-3b at full width and depth, 256
     patches and TRAIN_SEQ - 256 tokens (the loss on the text positions),
     with its config's AdamW, int8 compression and remat."""
-    from repro_torch.configs import get_arch
-    return run_train(dataclasses.replace(
-        get_arch(VLM_ARCH), attn_impl="flash_pallas", grad_compression=True,
-        remat=True))
+    return run_train(train_slice_cfg("vlm_train"))
 
 
 def ssm_layer_grads_card_vs_host(cfg, gen) -> dict:
@@ -1995,9 +2036,7 @@ def phase_ssm_train() -> dict:
     kernel-vs-plain comparison: its kernels are the int8 compression's);
     then one layer's gradients on the card against the host's."""
     import torch
-    from repro_torch.configs import get_arch
-    cfg = dataclasses.replace(get_arch(SSM_ARCH), optimizer="adafactor",
-                              grad_compression=True, remat=True)
+    cfg = train_slice_cfg("ssm_train")
     r = run_train(cfg)
     g = ssm_layer_grads_card_vs_host(
         cfg, torch.Generator(device="cuda").manual_seed(4))
@@ -2013,11 +2052,152 @@ def phase_hybrid_train() -> dict:
     depth cut to HYBRID_TRAIN_LAYERS, with the training slice's settings
     (the local attention through the flash kernels, window biting at
     S = 4096)."""
+    return run_train(train_slice_cfg("hybrid_train"))
+
+
+def dryrun_prefill_on_card() -> dict:
+    """The dry-run's prefill cell run on the card: DRYRUN_PREFILL at full
+    width and depth through ``make_prefill_step`` (no cache padding, as the
+    dry-run builds it), ``flash_pallas``; after a warm-up, the peak
+    statistics reset and every launch counter set to 0 just before one
+    prefill and read just after (one ``flash_fwd`` a layer, nothing
+    else); the logits must be finite."""
+    import torch
     from repro_torch.configs import get_arch
-    return run_train(dataclasses.replace(
-        get_arch(HYBRID_ARCH), n_layers=HYBRID_TRAIN_LAYERS,
-        attn_impl="flash_pallas", optimizer="adafactor",
-        grad_compression=True, remat=True))
+    from repro_torch.models import init_model
+    from repro_torch.serve import make_prefill_step
+    arch, B, S = DRYRUN_PREFILL
+    cfg = dataclasses.replace(get_arch(arch), attn_impl="flash_pallas")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_model(gen, cfg, device="cuda")
+    batch = model_inputs(cfg, gen, B, S)
+    prefill = make_prefill_step(cfg, device="cuda")
+    out = prefill(params, batch)                       # warm-up
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    _zero_counters()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = _counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {n: 0 for n in launches}
+    want["flash_fwd"] = attn_layers(cfg)
+    if launches != want:
+        fail(f"dry-run prefill launches {launches}, want {want}")
+    if not bool(torch.isfinite(logits).all()):
+        fail("dry-run prefill: non-finite logits")
+    del params, batch, logits, cache
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "batch": B, "seq": S, "peak_mem_gb": peak_gb,
+            "resident_gb": resident_gb, "prefill_ms": prefill_ms,
+            "launches": launches}
+
+
+def _dryrun_reading(cfg, kind: str, B: int, S: int, run: dict,
+                    model_flops: float | None) -> dict:
+    """The dry-run's count of one cell on the meta device beside the card's
+    reading of the same step: predicted peak (argument + temporary bytes)
+    against ``max_memory_allocated``, the counted FLOPs against the
+    model's, and the count's host seconds."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    res = dryrun.run_cell(cfg, ShapeConfig(f"card_{kind}", S, B, kind),
+                          tag="chip_smoke", verbose=False)
+    mem = res["memory"]
+    pred = mem["peak_bytes"] / 1e9
+    flops = res["per_device"]["flops"]
+    model = model_flops if model_flops is not None \
+        else res["model_flops_tree"]
+    return {"arch": cfg.name, "layers": cfg.n_layers, "kind": kind,
+            "batch": B, "seq": S, "optimizer": cfg.optimizer,
+            "predicted_peak_gb": pred, "card_peak_gb": run["peak_mem_gb"],
+            "peak_rel_err": (pred - run["peak_mem_gb"])
+            / run["peak_mem_gb"],
+            "argument_gb": mem["argument_bytes"] / 1e9,
+            "temp_gb": mem["temp_bytes"] / 1e9,
+            "card_resident_gb": run["resident_gb"],
+            "own_err_gb": mem["temp_bytes"] / 1e9
+            - (run["peak_mem_gb"] - run["resident_gb"]),
+            "counted_flops": flops, "model_flops": model,
+            "flops_ratio": flops / model, "eager_bytes":
+            res["per_device"]["bytes"], "n_ops": res["per_device"]["n_ops"],
+            "roofline": res["roofline"], "count_wall_s": res["count_wall_s"],
+            "counted_on": res["counted_on"], "peaks_of": res["peaks_of"]}
+
+
+def op_host_us(iters: int = 200) -> dict:
+    """Host microseconds a ``flash_fwd`` call takes through the wrapper
+    itself and through the port's op (``flash_fwd_op``: a schema defined
+    with ``torch.library.Library``, the wrapper its CPU and CUDA kernel, as
+    the model reaches it), at a small bf16 case where the launch is most of
+    the work (one head, 128 queries and keys, D = 128): the least of two
+    runs of ``iters`` calls each, ending in a synchronise, in turns."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn((1, 1, 1, 128, 128), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k = torch.randn((1, 1, 128, 128), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    scale = 128 ** -0.5
+    calls = {"wrapper": lambda: fa.flash_fwd(q, k, k, scale=scale),
+             "port_op": lambda: fa.flash_fwd_op(q, k, k, True, 0, 0, scale)}
+
+    def host_us(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e6 / iters
+
+    got = {name: [] for name in calls}
+    for name in (*calls, *reversed(calls)):
+        got[name].append(host_us(calls[name]))
+    return {f"{name}_us": min(v) for name, v in got.items()}
+
+
+def phase_dryrun(train_runs: dict) -> dict:
+    """The dry-run's predictions held against the card.  Each training
+    slice that ran above (``train_slice_cfg``: the same config, depth cut,
+    batch, sequence, optimizer, int8 compression, remat and
+    ``flash_pallas``) is counted by ``repro_torch.launch.dryrun`` on the
+    meta device, and so is DRYRUN_PREFILL, which runs on the card here
+    (``dryrun_prefill_on_card``).  Each predicted peak must lie within
+    DRYRUN_PEAK_REL_TOL of the card's, and the step's own bytes within
+    DRYRUN_OWN_ABS_TOL_GB; the counted FLOPs are printed
+    against the model FLOPs (``train_model_flops``; for the prefill,
+    2 x the tree's params a token), a ratio >= 1 where remat recomputes the
+    forward and MoE computes padded capacity slots.  The counts run on
+    the meta device and launch nothing: every counter stays 0."""
+    prefill = dryrun_prefill_on_card()
+    _zero_counters()
+    out = {name: _dryrun_reading(train_slice_cfg(name), "train",
+                                 TRAIN_BATCH, TRAIN_SEQ, run,
+                                 run["model_flops_per_step"])
+           for name, run in train_runs.items()}
+    out["prefill"] = _dryrun_reading(prefill["cfg"], "prefill",
+                                     prefill["batch"], prefill["seq"],
+                                     prefill, None)
+    counted = _counters()
+    if any(counted.values()):
+        fail(f"the dry-run's counts launched kernels: {counted}")
+    out["prefill"].update(card_prefill_ms=prefill["prefill_ms"],
+                          launches=prefill["launches"])
+    for name, r in out.items():
+        print(json.dumps({"dryrun_vs_card": {name: r}}))
+        hold(f"{name}: dry-run peak vs the card's", abs(r["peak_rel_err"]),
+             DRYRUN_PEAK_REL_TOL)
+        hold(f"{name}: dry-run's temporary GB vs the card's step",
+             abs(r["own_err_gb"]), DRYRUN_OWN_ABS_TOL_GB)
+    print(json.dumps({"op_host_us": op_host_us()}))
+    return out
 
 
 def _bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -2080,7 +2260,7 @@ def attn_times(case, iters: int, plain_iters: int, bwd: bool) -> dict:
     # the (query, key) pairs this mask allows (causal: S(S+1)/2 per q
     # head), each product one multiply-add over D; q/k/v/dO/out/dq/dk/dv
     # (bf16) and lse/delta (fp32) read or written once
-    prod = 2.0 * B * Hq * D * float(allow.sum())
+    prod = 2.0 * B * Hq * D * fa.allowed_pairs(S, case_sk(case), **mask)
     nq, nkv, rows = q.numel() * 2, k.numel() * 2, 4 * B * Hq * S
     r["bound_ms"], r["bound_by"] = _bound(2 * prod, 2 * nq + 2 * nkv + rows)
     r["flops"], r["bytes"] = 2 * prod, 2 * nq + 2 * nkv + rows
@@ -2345,6 +2525,16 @@ def main() -> int:
     print(json.dumps({"vlm_serve": vlm_serve_run, "card": card}))
     vlm_train_run = phase_vlm_train()
     print(json.dumps({"vlm_train": vlm_train_run, "card": card}))
+    torch.cuda.empty_cache()
+    dryrun_run = phase_dryrun({
+        "train": train_run, "moe_train": moe_train_run,
+        "ssm_train": ssm_train_run, "hybrid_train": hybrid_train_run,
+        "encdec_train": encdec_train_run, "vlm_train": vlm_train_run})
+    print(json.dumps({"dryrun": {
+        name: {k: r[k] for k in ("predicted_peak_gb", "card_peak_gb",
+                                 "peak_rel_err", "own_err_gb",
+                                 "flops_ratio", "count_wall_s")}
+        for name, r in dryrun_run.items()}, "card": card}))
     ckpt_run = phase_ckpt_train()
     saved = ckpt_run.pop("copy")
     stripe_run = phase_stripe(saved)
@@ -2389,7 +2579,8 @@ def main() -> int:
         + sum(n["flash_fwd"] for run in (offload_run, moe_serve_run,
                                          hybrid_serve_run, encdec_serve_run,
                                          vlm_serve_run)
-              for n in run["launches"].values()),
+              for n in run["launches"].values())
+        + dryrun_run["prefill"]["launches"]["flash_fwd"],
         "max_abs_err": max(slice_err, fwd_train_err), "ms": times["ms"],
         "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"], "library_ms": times["library_ms"],

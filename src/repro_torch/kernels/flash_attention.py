@@ -10,13 +10,26 @@ tensor each computes its plain twin (``flash_fwd_reference``,
 ``flash_bwd_reference``), which ``chip_smoke.py`` also uses as the
 on-card oracle.  ``LAUNCHES`` (forward), ``BWD_DQ_LAUNCHES`` and
 ``BWD_DKV_LAUNCHES`` count kernel launches and nothing else.
+
+``flash_fwd_op`` and ``flash_bwd_op`` are the same entry points registered
+as PyTorch custom ops (``repro_torch::flash_fwd``, ``::flash_bwd``), which
+the model calls through ``ops.flash_attention``: on a CUDA or CPU tensor
+the op runs the wrapper above; on a meta tensor only its fake runs, which
+makes outputs of the kernel's shapes, dtypes and strides and computes
+nothing.  Each op has a FLOP formula in ``torch.utils.flop_counter``'s
+registry, over the (query, key) pairs the mask allows
+(``allowed_pairs``), so a counter sees one kernel as one unit of cost, as
+the reference's dry-run sees the Pallas custom call.  The wrappers
+themselves still refuse a meta tensor.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
 
@@ -220,3 +233,99 @@ def _bwd_kernel(name):
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_void_p]
     return fn
+
+
+# ----------------------------- custom ops -----------------------------
+
+def allowed_pairs(S: int, Sk: int, causal: bool, window: int,
+                  prefix: int) -> int:
+    """The (query, key) pairs that ``_allow`` lets through, row by row in
+    closed form: keys lo..hi of the causal / window band, plus the prefix
+    keys outside it."""
+    qi = np.arange(S, dtype=np.int64)
+    hi = np.minimum(qi, Sk - 1) if causal else np.full(S, Sk - 1, np.int64)
+    lo = np.maximum(qi - window + 1, 0) if window else np.zeros(S, np.int64)
+    n = np.maximum(hi - lo + 1, 0)
+    p = min(prefix, Sk)
+    if p:
+        n += p - np.maximum(np.minimum(hi, p - 1) - lo + 1, 0)
+    return int(n.sum())
+
+
+def attention_flops(q_shape, Sk: int, causal: bool, window: int,
+                    prefix: int, products: int) -> int:
+    """``products`` products of 2 B Hq D FLOPs a pair the mask allows, for
+    q of shape (B, n_kv, G, S, D): the forward does 2 (q.k, p.v), the
+    backward pair 7 (dq 3: q.k, dO.v, ds.k; dk/dv 4: q.k, dO.v, ds.q,
+    p.dO)."""
+    B, H, G, S, D = q_shape
+    return products * 2 * B * H * G * D * allowed_pairs(S, Sk, causal,
+                                                         window, prefix)
+
+
+# The schemas are defined with ``torch.library.Library`` and the wrappers
+# registered for the CPU and CUDA keys: the dispatcher then calls them with
+# a few microseconds of overhead (``torch.library.custom_op`` added some
+# 30 a call on an H100 host, PERF.md, which the host-bound steps would pay
+# on every launch; ``chip_smoke.py`` times the op against the wrapper).
+# No other device has a kernel, so a meta tensor reaches the fake and
+# nothing else.
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int window, int prefix, float scale) -> (Tensor, Tensor)")
+_LIB.define("flash_bwd(Tensor q, Tensor k, Tensor v, Tensor do, "
+            "Tensor lse, Tensor delta, bool causal, int window, int prefix, "
+            "float scale) -> (Tensor, Tensor, Tensor)")
+
+
+def _flash_fwd_impl(q, k, v, causal, window, prefix, scale):
+    return flash_fwd(q, k, v, causal=causal, window=window, prefix=prefix,
+                     scale=scale)
+
+
+def _flash_bwd_impl(q, k, v, do, lse, delta, causal, window, prefix, scale):
+    return flash_bwd(q, k, v, do, lse, delta, causal=causal, window=window,
+                     prefix=prefix, scale=scale)
+
+
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("flash_fwd", _flash_fwd_impl, _key)
+    _LIB.impl("flash_bwd", _flash_bwd_impl, _key)
+
+
+@torch.library.register_fake("repro_torch::flash_fwd", lib=_LIB)
+def _flash_fwd_fake(q, k, v, causal, window, prefix, scale):
+    _check(q, k, v)
+    B, H, G, S, D = q.shape
+    out = q.new_empty((B, S, H, G, D)).permute(0, 2, 3, 1, 4)
+    return out, q.new_empty((B, H, G, S), dtype=torch.float32)
+
+
+@torch.library.register_fake("repro_torch::flash_bwd", lib=_LIB)
+def _flash_bwd_fake(q, k, v, do, lse, delta, causal, window, prefix, scale):
+    _check(q, k, v)
+    B, H, G, S, D = q.shape
+    Sk = k.shape[2]
+    dq = q.new_empty((B, S, H, G, D)).permute(0, 2, 3, 1, 4)
+    dk = k.new_empty((B, Sk, H, D)).permute(0, 2, 1, 3)
+    dv = v.new_empty((B, Sk, H, D)).permute(0, 2, 1, 3)
+    return dq, dk, dv
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _flash_fwd_flops(q_shape, k_shape, v_shape, causal, window, prefix,
+                     scale, out_shape=None, **kwargs) -> int:
+    return attention_flops(q_shape, k_shape[2], causal, window, prefix, 2)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_bwd)
+def _flash_bwd_flops(q_shape, k_shape, *args, out_shape=None,
+                     **kwargs) -> int:
+    causal, window, prefix = args[4:7]
+    return attention_flops(q_shape, k_shape[2], causal, window, prefix, 7)
+
+
+# (q, k, v, causal, window, prefix, scale) -> (out, lse)
+flash_fwd_op = torch.ops.repro_torch.flash_fwd.default
+# (q, k, v, do, lse, delta, causal, window, prefix, scale) -> (dq, dk, dv)
+flash_bwd_op = torch.ops.repro_torch.flash_bwd.default

@@ -7,7 +7,9 @@ lse), the backward computes ``delta = rowsum(dO * O)`` in fp32 and runs the
 two backward kernels.  The TPU wrapper transposes to (B, n_kv, G, S, D) and
 zero-pads D to 128 for the TPU's (8, 128) tiling; the Hopper kernels read
 permuted views through their strides and take any D <= 256, so here the
-layout change is a free view.
+layout change is a free view.  The kernels are reached through their
+custom ops (``flash_fwd_op``, ``flash_bwd_op``, ``quantize_op``,
+``dequantize_op``), so on the meta device only their fakes run.
 
 ``quantize`` / ``dequantize`` mirror the JAX wrappers of the same names:
 flatten, pad to whole blocks of 8 x 1024 values, and carry the original
@@ -28,10 +30,8 @@ import torch
 
 from . import shard_pack as _sp
 from .checksum import byte_view, checksum
-from .flash_attention import flash_bwd, flash_fwd
-from .quantize import BLOCK_GROUPS, GROUP
-from .quantize import dequantize as _dequantize_groups
-from .quantize import quantize as _quantize_groups
+from .flash_attention import flash_bwd_op, flash_fwd_op
+from .quantize import BLOCK_GROUPS, GROUP, dequantize_op, quantize_op
 
 
 def _five_d(x, n_kv):
@@ -49,10 +49,9 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, n_kv, causal, window, prefix):
-        out5, lse = flash_fwd(_five_d(q, n_kv), k.permute(0, 2, 1, 3),
-                              v.permute(0, 2, 1, 3), causal=causal,
-                              window=window, prefix=prefix,
-                              scale=1.0 / math.sqrt(q.shape[-1]))
+        out5, lse = flash_fwd_op(_five_d(q, n_kv), k.permute(0, 2, 1, 3),
+                                 v.permute(0, 2, 1, 3), causal, window,
+                                 prefix, 1.0 / math.sqrt(q.shape[-1]))
         out = _four_d(out5)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (n_kv, causal, window, prefix)
@@ -64,10 +63,10 @@ class _FlashAttention(torch.autograd.Function):
         n_kv, causal, window, prefix = ctx.mask
         do5 = _five_d(dout.contiguous(), n_kv)
         delta = (do5.float() * _five_d(out, n_kv).float()).sum(dim=-1)
-        dq5, dk4, dv4 = flash_bwd(
+        dq5, dk4, dv4 = flash_bwd_op(
             _five_d(q, n_kv), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
-            do5, lse, delta, causal=causal, window=window, prefix=prefix,
-            scale=1.0 / math.sqrt(q.shape[-1]))
+            do5, lse, delta, causal, window, prefix,
+            1.0 / math.sqrt(q.shape[-1]))
         return (_four_d(dq5).to(q.dtype), dk4.permute(0, 2, 1, 3).to(k.dtype),
                 dv4.permute(0, 2, 1, 3).to(v.dtype), None, None, None, None)
 
@@ -97,7 +96,7 @@ def quantize(x: torch.Tensor):
     pad = (-flat.numel()) % (GROUP * BLOCK_GROUPS)
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
-    q, s = _quantize_groups(flat.reshape(-1, GROUP))
+    q, s = quantize_op(flat.reshape(-1, GROUP))
     return q, s, meta
 
 
@@ -105,7 +104,7 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor, meta) -> torch.Tensor:
     shape, dtype, n = meta
     out_dtype = dtype if dtype in (torch.float32, torch.bfloat16) \
         else torch.float32
-    flat = _dequantize_groups(q, scales, out_dtype).reshape(-1)
+    flat = dequantize_op(q, scales, out_dtype).reshape(-1)
     return flat[:n].reshape(shape).to(dtype)
 
 

@@ -17,6 +17,13 @@ own dtype): widening bf16 to fp32 is exact, so the result is the same as
 for ``groups.float()`` and the caller needs no fp32 copy.  ``dequantize``
 may likewise write bf16: its fp32 product rounded once, the same number as
 the fp32 output cast afterwards.
+
+``quantize_op`` and ``dequantize_op`` are the same entry points registered
+as PyTorch custom ops (``repro_torch::quantize``, ``::dequantize``), which
+``ops.quantize`` / ``ops.dequantize`` call: on a CUDA or CPU tensor the op
+runs the wrapper; on a meta tensor only its fake runs, making outputs of
+the kernel's shapes and dtypes.  They do no products, so a FLOP counter
+charges them nothing; a byte counter sees their operands and results.
 """
 from __future__ import annotations
 
@@ -136,3 +143,35 @@ def _kernel(name):
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int,
                                                ctypes.c_void_p]
     return fn
+
+
+# ----------------------------- custom ops -----------------------------
+
+# Registered as flash_attention.py registers its ops (see there): the
+# wrappers for the CPU and CUDA keys, a fake for everything else.
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("quantize(Tensor groups) -> (Tensor, Tensor)")
+_LIB.define("dequantize(Tensor q, Tensor scales, ScalarType out_dtype) "
+            "-> Tensor")
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("quantize", quantize, _key)
+    _LIB.impl("dequantize", dequantize, _key)
+
+
+@torch.library.register_fake("repro_torch::quantize", lib=_LIB)
+def _quantize_fake(groups):
+    _check_groups(groups, "groups")
+    return (groups.new_empty(groups.shape, dtype=torch.int8),
+            groups.new_empty((groups.shape[0], 1), dtype=torch.float32))
+
+
+@torch.library.register_fake("repro_torch::dequantize", lib=_LIB)
+def _dequantize_fake(q, scales, out_dtype):
+    _check_groups(q, "q")
+    return q.new_empty(q.shape, dtype=out_dtype)
+
+
+# (groups) -> (q, scales)
+quantize_op = torch.ops.repro_torch.quantize.default
+# (q, scales, out_dtype) -> out
+dequantize_op = torch.ops.repro_torch.dequantize.default

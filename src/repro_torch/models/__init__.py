@@ -3,8 +3,8 @@
 encoder-decoder."""
 from .model import (cache_spec, forward_decode, forward_prefill,
                     forward_train, init_cache, init_model, input_specs,
-                    make_inputs, param_count, text_len)
+                    make_inputs, param_count, param_shapes, text_len)
 
 __all__ = ["cache_spec", "forward_decode", "forward_prefill",
            "forward_train", "init_cache", "init_model", "input_specs",
-           "make_inputs", "param_count", "text_len"]
+           "make_inputs", "param_count", "param_shapes", "text_len"]

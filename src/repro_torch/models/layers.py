@@ -4,7 +4,8 @@ causal / sliding-window / prefix-LM masks, ring KV caches), MLPs.
 Counterpart of the JAX package's models/layers.py, with the same rounding
 order at each step.  Params are plain dicts of tensors with the JAX
 pytree's keys and shapes; ``init_*`` draws them from an explicit
-``torch.Generator`` on its device.  There is no mesh here, so
+``torch.Generator`` on its device (with none, makes them on the meta
+device, drawing nothing).  There is no mesh here, so
 ``shard_batch``/``shard_expert`` are identities.
 """
 from __future__ import annotations
@@ -31,7 +32,16 @@ def _dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
 
 
-def _init(gen: torch.Generator, shape, scale=None, dtype=torch.float32):
+def init_device(gen: torch.Generator | None) -> torch.device:
+    """Where ``init_*`` puts its leaves: on the generator's device, or on
+    the meta device where there is no generator (shapes only, no draw)."""
+    return torch.device("meta") if gen is None else gen.device
+
+
+def _init(gen: torch.Generator | None, shape, scale=None,
+          dtype=torch.float32):
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     scale = scale if scale is not None else 1.0 / np.sqrt(shape[0])
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
@@ -216,7 +226,7 @@ def init_embedding(gen: torch.Generator, cfg) -> Params:
     return {"tok": _init(gen, (V, cfg.d_model), scale=0.02, dtype=dt),
             "head": _init(gen, (cfg.d_model, V), dtype=dt),
             "final_norm": torch.ones((cfg.d_model,), dtype=dt,
-                                     device=gen.device)}
+                                     device=init_device(gen))}
 
 
 def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,12 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, tp_pad: int = 1,
     return T.init_model(gen, cfg, tp_pad)
 
 
+def param_shapes(cfg: ModelConfig, tp_pad: int = 1) -> Params:
+    """The param tree as meta tensors: every leaf's shape and dtype, nothing
+    allocated or drawn (the dry-run path)."""
+    return T.init_model(None, cfg, tp_pad)
+
+
 def param_count(params: Params) -> int:
     return sum(p.numel() for p in tree_leaves(params))
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import _dtype, _gelu, _init
+from .layers import _dtype, _gelu, _init, init_device
 from .ssm import _causal_conv
 
 _C = 8.0
@@ -29,7 +29,7 @@ def init_rglru_block(gen: torch.Generator, cfg) -> dict:
     d = cfg.d_model
     w = cfg.lru_width or d
     dt = _dtype(cfg)
-    f32 = dict(dtype=torch.float32, device=gen.device)
+    f32 = dict(dtype=torch.float32, device=init_device(gen))
     return {
         "w_branch": _init(gen, (d, w), dtype=dt),
         "w_gate_branch": _init(gen, (d, w), dtype=dt),

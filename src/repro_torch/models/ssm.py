@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import _dtype, _init, rms_norm
+from .layers import _dtype, _init, init_device, rms_norm
 
 
 def init_ssm(gen: torch.Generator, cfg) -> dict:
@@ -28,7 +28,7 @@ def init_ssm(gen: torch.Generator, cfg) -> dict:
     H = cfg.ssm_heads
     N = cfg.ssm_state
     dt = _dtype(cfg)
-    f32 = dict(dtype=torch.float32, device=gen.device)
+    f32 = dict(dtype=torch.float32, device=init_device(gen))
     return {
         # fused input projection: [z (gate), x, B, C, dt]
         "w_in": _init(gen, (d, 2 * din + 2 * N + H), dtype=dt),
@@ -38,7 +38,7 @@ def init_ssm(gen: torch.Generator, cfg) -> dict:
         "d_skip": torch.ones((H,), **f32),
         "dt_bias": torch.zeros((H,), **f32),
         "w_out": _init(gen, (din, d), dtype=dt),
-        "out_norm": torch.ones((din,), dtype=dt, device=gen.device),
+        "out_norm": torch.ones((din,), dtype=dt, device=init_device(gen)),
     }
 
 

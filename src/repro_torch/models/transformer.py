@@ -52,7 +52,8 @@ def _require_ported(cfg) -> None:
 
 def _block_init(gen: torch.Generator, cfg, kind: str, tp_pad: int) -> Params:
     dt = L._dtype(cfg)
-    ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dt,
+                              device=L.init_device(gen))
     if kind == "ssm":
         return {"ssm": SSM.init_ssm(gen, cfg), "norm1": ones()}
     if kind == "rec":
@@ -110,9 +111,11 @@ def hybrid_layout(cfg) -> tuple[int, int]:
     return n_attn, cfg.n_layers - 3 * n_attn
 
 
-def init_model(gen: torch.Generator, cfg, tp_pad: int = 1) -> Params:
-    """Draws every param from ``gen`` on its device.  tp_pad: q-heads are
-    padded up to a multiple of it (zero-weight pad heads)."""
+def init_model(gen: torch.Generator | None, cfg, tp_pad: int = 1) -> Params:
+    """Draws every param from ``gen`` on its device; with ``gen=None`` the
+    leaves are made on the meta device and nothing is drawn (the dry-run's
+    ``param_shapes``).  tp_pad: q-heads are padded up to a multiple of it
+    (zero-weight pad heads)."""
     _require_ported(cfg)
     params: Params = {"embed": L.init_embedding(gen, cfg)}
     if cfg.family == "encdec":

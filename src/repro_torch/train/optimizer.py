@@ -152,6 +152,17 @@ def opt_init(name: str, params):
     return adamw_init(params) if name == "adamw" else adafactor_init(params)
 
 
+def opt_state_shapes(name: str, param_shapes_tree):
+    """The optimizer state of a meta param tree (``models.param_shapes``),
+    as meta tensors: ``opt_init`` on the shapes, nothing allocated (the
+    dry-run path)."""
+    for p in tree_leaves(param_shapes_tree):
+        if p.device.type != "meta":
+            raise ValueError(f"opt_state_shapes takes meta tensors, got "
+                             f"{p.device}")
+    return opt_init(name, param_shapes_tree)
+
+
 @torch.no_grad()
 def opt_update(name: str, grads, state, params, oc: OptConfig | None = None):
     """Updates ``params`` and ``state`` in place and returns them."""

@@ -42,7 +42,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
               "repro_torch.data.pipeline", "repro_torch.ft.failures",
               "repro_torch.launch.train", "repro_torch.serve.kvstore",
               "repro_torch.serve.scheduler", "repro_torch.models.ssm",
-              "repro_torch.models.rglru"):
+              "repro_torch.models.rglru", "repro_torch.launch.mesh",
+              "repro_torch.launch.op_cost", "repro_torch.launch.dryrun"):
         assert m in mods
     scripts = [ROOT / "chip_smoke.py"] + [ROOT / "examples" / f"{e}.py"
                                           for e in EXAMPLES]

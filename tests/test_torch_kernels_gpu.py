@@ -317,6 +317,41 @@ def test_quantize_kernels_bit_exact_with_plain_version(cuda, dtype):
                        .view(torch.int16))
 
 
+def test_custom_ops_launch_the_kernels(cuda):
+    """On the card the custom ops are the wrappers: each call launches its
+    kernel once (the counters move) and returns what the wrapper returns,
+    strides included."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((2, 2, 3, 96, 64), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    k, v = (torch.randn((2, 2, 96, 64), generator=gen, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    mask = dict(causal=True, window=40, prefix=8)
+    before = fa.LAUNCHES
+    out, lse = fa.flash_fwd_op(q, k, v, True, 40, 8, 0.125)
+    assert fa.LAUNCHES == before + 1
+    ref_out, ref_lse = fa.flash_fwd(q, k, v, scale=0.125, **mask)
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+    assert out.stride() == ref_out.stride()
+    delta = torch.randn(lse.shape, generator=gen, device=cuda)
+    before = (fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+    grads = fa.flash_bwd_op(q, k, v, q, lse, delta, True, 40, 8, 0.125)
+    assert (fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    for got, want in zip(grads, fa.flash_bwd(q, k, v, q, lse, delta,
+                                             scale=0.125, **mask)):
+        assert torch.equal(got, want) and got.stride() == want.stride()
+    x = _groups(cuda, torch.bfloat16)
+    before = (qz.QUANT_LAUNCHES, qz.DEQUANT_LAUNCHES)
+    qq, ss = qz.quantize_op(x)
+    back = qz.dequantize_op(qq, ss, torch.float32)
+    assert (qz.QUANT_LAUNCHES, qz.DEQUANT_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    q_ref, s_ref = qz.quantize(x)
+    assert torch.equal(qq, q_ref) and torch.equal(ss, s_ref)
+    assert torch.equal(back, qz.dequantize(q_ref, s_ref))
+
+
 def test_kernel_path_grads_match_blockwise(cuda):
     """The autograd Function on the card: forward and both backward
     kernels, against autograd through the plain blockwise path (fp32)."""
