@@ -42,7 +42,6 @@ def cache_len(cfg, seq_len: int) -> int:
 
 def cache_spec(cfg, seq_len: int, batch: int) -> dict:
     """TensorSpec dict of the decode cache."""
-    T._require_ported(cfg)
     dt = L._dtype(cfg)
     if cfg.family == "ssm":
         din = cfg.ssm_expand * cfg.d_model
@@ -90,7 +89,6 @@ def forward_decode(params: Params, cfg, cache: dict, tokens: torch.Tensor,
     """tokens: (B, 1) integer; pos: the current position (int or 0-d
     tensor, the same for every row).  Returns (hidden (B, 1, d), cache),
     the cache updated in place."""
-    T._require_ported(cfg)
     pos = int(pos)
     n_heads = T.params_n_heads(params, cfg)
     x = L.embed(params["embed"], tokens)
@@ -195,7 +193,6 @@ def forward_prefill(params: Params, cfg, batch, pad_to: int | None = None):
     """-> (hidden (B, S, d), cache). Builds the serving cache; `pad_to`
     sizes the KV cache for subsequent decode steps (defaults to the
     prompt length + 1)."""
-    T._require_ported(cfg)
     n_heads = T.params_n_heads(params, cfg)
     x, positions = T._embed_inputs(params, cfg, batch)
     pad_to = pad_to if pad_to is not None else x.shape[1] + 1

@@ -58,7 +58,6 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     """TensorSpec stand-ins for every model input of this cell: the tokens,
     and the VLM's ``prefix_emb`` or the encoder-decoder's ``src_emb`` in
     the params' dtype, splitting the seq_len budget as ``text_len`` does."""
-    T._require_ported(cfg)
     B, S = shape.global_batch, shape.seq_len
     if shape.kind in ("train", "prefill"):
         St = text_len(cfg, S)

@@ -17,6 +17,8 @@ bidirectionally (the prefix-LM mask).  The encoder-decoder keeps an
 embeddings (``src_emb``) and a ``decoder`` stack of "cross" layers: causal
 self-attention, cross-attention to the encoder's output (no final norm,
 no rope), then the MLP.
+A family with no branch of its own (the configs' "audio") takes the
+dense, token-only stack at every dispatch, as in the reference.
 
   forward_train(params, cfg, batch) -> (hidden, aux_loss)
 """
@@ -35,16 +37,6 @@ from . import ssm as SSM
 from .attention_flash import blockwise_attention
 
 Params = dict
-
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
-
-
-def _require_ported(cfg) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported to torch yet "
-            f"(ported: {', '.join(PORTED_FAMILIES)})")
-
 
 # ======================================================================
 # init
@@ -116,7 +108,6 @@ def init_model(gen: torch.Generator | None, cfg, tp_pad: int = 1) -> Params:
     leaves are made on the meta device and nothing is drawn (the dry-run's
     ``param_shapes``).  tp_pad: q-heads are padded up to a multiple of it
     (zero-weight pad heads)."""
-    _require_ported(cfg)
     params: Params = {"embed": L.init_embedding(gen, cfg)}
     if cfg.family == "encdec":
         params["encoder"] = _stack(gen, cfg, "attn", cfg.enc_layers, tp_pad)
@@ -316,7 +307,6 @@ def forward_train(params: Params, cfg, batch, n_groups: int = 1):
     ``cfg.remat`` each body (a layer, or a hybrid super-block) is
     checkpointed, so only its input is kept and its forward runs again
     during the backward pass."""
-    _require_ported(cfg)
     n_heads = params_n_heads(params, cfg)
     x, positions = _embed_inputs(params, cfg, batch)
     grad = torch.is_grad_enabled()

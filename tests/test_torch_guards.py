@@ -148,33 +148,22 @@ def test_step_refuses_tokens_on_another_device(factory):
             step({}, {"tokens": tokens})
 
 
-@pytest.mark.parametrize("family_arch", ["seamless-m4t-large-v2",
-                                         "paligemma-3b"])
-def test_unported_families_raise(family_arch):
-    """A family outside ``PORTED_FAMILIES`` (the configs' "audio", which no
-    architecture uses) raises ``NotImplementedError``; the encdec and vlm
-    families these architectures belong to are ported."""
-    import dataclasses
-    from repro_torch.configs import ARCHS, smoke_variant
-    from repro_torch.models import init_model
-    from repro_torch.models.transformer import PORTED_FAMILIES
-    cfg = smoke_variant(ARCHS[family_arch])
-    assert cfg.family in PORTED_FAMILIES
-    with pytest.raises(NotImplementedError):
-        init_model(torch.Generator().manual_seed(0),
-                   dataclasses.replace(cfg, family="audio"), device="cpu")
-
-
 @pytest.mark.parametrize("arch", sorted(ARCHS))
-def test_init_model_raises_only_for_encdec_and_vlm(arch):
-    """Every architecture's smoke model builds, the encdec and vlm
-    families' included: all six families are ported, and none raises."""
+def test_init_model_builds_every_arch(arch):
+    """Every architecture's smoke model builds, with no family left out:
+    the configs name seven families, the architectures use six of them,
+    and the seventh ("audio") takes the dense stack as in the reference
+    (held against it in test_torch_families.py)."""
+    from typing import get_args
+
     from repro_torch.configs import smoke_variant
+    from repro_torch.configs.base import Family
     from repro_torch.models import init_model
-    from repro_torch.models.transformer import PORTED_FAMILIES
+    assert get_args(Family) == ("dense", "encdec", "vlm", "hybrid", "moe",
+                                "ssm", "audio")
+    assert {a.family for a in ARCHS.values()} == set(get_args(Family)) \
+        - {"audio"}
     cfg = smoke_variant(ARCHS[arch])
-    assert sorted(PORTED_FAMILIES) == sorted(
-        {a.family for a in ARCHS.values()})
     params = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
     assert params["embed"]["tok"].shape[1] == cfg.d_model
     if cfg.family == "encdec":
