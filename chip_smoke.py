@@ -10,13 +10,16 @@ Phases, each fatal on failure:
 1. print the card's name and power limit; build every kernel from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel)
    and check that the bf16 flash-attention kernels multiply on the tensor
-   cores (HMMA/HGMMA instructions in their SASS);
+   cores (HMMA/HGMMA instructions in their SASS), the backward's wgmma
+   kernels (``WGMMA_KERNELS``) on wgmma (HGMMA);
 2. hold each kernel against its plain torch version on the card: flash
    attention forward and backward in fp32 and bf16 at the reference tests'
    cases, a ragged S, D=256 and the slices' shapes (the MoE slices' GQA
    with G = 16 query heads a KV head and the hybrid's MQA with G = 16,
    D = 256 and window 2048 among them), the backward fed the
-   forward kernel's own ``out`` and ``lse``; quantize / dequantize
+   forward kernel's own ``out`` and ``lse``, its cases reaching each of
+   its routes (wgmma, mma, fp32; every training shape on wgmma in bf16)
+   and each run twice, bit for bit the same; quantize / dequantize
    bit for bit on a layer-sized gradient, an all-zero group and .5 ties;
    checksum and stripe pack / unpack bit for bit, the checksum also
    against ``core.integrity.checksum`` of the host bytes, up to a
@@ -45,7 +48,9 @@ Phases, each fatal on failure:
    norm and per-leaf gradients against the plain path's from the same
    params and batch, then run ``make_train_step`` once to warm up and 3
    timed steps with every launch counter set to 0 just before and read
-   just after (exact counts per step), and check the loss falls;
+   just after (exact counts per step; every backward pass on the wgmma
+   route, ``flash_attention.BWD_ROUTE_LAUNCHES``), and check the loss
+   falls;
    then the MoE family: qwen3-moe-235b-a22b at full width, its depth cut,
    serving (8 layers; the serving slice's prompts and decode steps with
    exact launch counts, each layer's drop fraction, decode at S against a
@@ -102,7 +107,9 @@ Phases, each fatal on failure:
 6. time the slices and each kernel against its bound, its plain version and
    the nearest PyTorch call, the flash kernels also at the MoE, hybrid,
    encoder-decoder and VLM slices' shapes (SDPA with an explicit boolean
-   mask under a window or prefix, and the backend it takes).
+   mask under a window or prefix, and the backend it takes); the
+   backward pair also on its mma.sync kernels (the mma route) on the same
+   inputs, and the host time of building its TMA tensor maps.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the kernels' JSON record, and the card's line precedes that.
@@ -378,6 +385,14 @@ CKPT_KILL_AT = 7
 TC_KERNELS = {"flash_fwd": ("flash_fwd_tc_kernel",),
               "flash_bwd": ("flash_bwd_dq_tc_kernel",
                             "flash_bwd_dkv_tc_kernel")}
+# The backward's wgmma route (bf16, D in {64, 128, 256}, aligned views:
+# every training shape), whose SASS must hold HGMMA (wgmma) instructions.
+WGMMA_KERNELS = {"flash_bwd": ("flash_bwd_dq_wg_kernel",
+                               "flash_bwd_dkv_wg_kernel")}
+# its dk/dv pass's second kernel where the G groups are chunked
+REDUCE_KERNEL = "flash_bwd_dkv_reduce_kernel"
+# host microseconds of building one pass's tensor maps, over this many
+MAP_BUILD_REPS = 2000
 
 
 def fail(msg: str) -> None:
@@ -470,10 +485,11 @@ def make_qkv(case, dtype, gen):
     return (q, k, v), (q5, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3))
 
 
-def sass_mma_counts(lib, names) -> dict | None:
-    """The HMMA/HGMMA instruction count of each function in ``lib`` whose
-    name holds one of ``names`` (every template instance), from
-    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+def sass_mma_counts(lib, names, pattern=r"\bH(?:G)?MMA\b") -> dict | None:
+    """The HMMA/HGMMA instruction count (or the count of ``pattern``'s
+    matches) of each function in ``lib`` whose name holds one of ``names``
+    (every template instance), from ``cuobjdump -sass``; None where the
+    toolkit has no cuobjdump."""
     from repro_torch.kernels import build
     tool = build.cuda_tool("cuobjdump")
     if tool is None:
@@ -488,7 +504,7 @@ def sass_mma_counts(lib, names) -> dict | None:
                 else None
             if fn:
                 counts[fn] = 0
-        elif fn and re.search(r"\bH(?:G)?MMA\b", line):
+        elif fn and re.search(pattern, line):
             counts[fn] += 1
     return counts
 
@@ -509,6 +525,15 @@ def phase_build() -> None:
                 or not all(counts.values())):
             fail(f"a bf16 {lib} kernel has no tensor-core instruction: "
                  f"{counts}")
+    for lib, names in WGMMA_KERNELS.items():
+        counts = sass_mma_counts(build.library_path(lib), names,
+                                 r"\bHGMMA\b")
+        print(json.dumps({"sass_hgmma_instructions": counts}))
+        if counts is None:
+            fail("no cuobjdump: the wgmma kernels' SASS cannot be read")
+        if any(not any(k in fn for fn in counts) for k in names) \
+                or not all(counts.values()):
+            fail(f"a {lib} wgmma kernel has no HGMMA instruction: {counts}")
 
 
 def phase_kernels() -> float:
@@ -566,6 +591,7 @@ def phase_bwd_kernels() -> tuple[float, float]:
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(13)
     fwd_err = bwd_err = 0.0
+    routes_seen = {}
     for case in BWD_CASES:
         mask = case_mask(case)
         for dtype in (torch.float32, torch.bfloat16):
@@ -583,8 +609,16 @@ def phase_bwd_kernels() -> tuple[float, float]:
             del ref_out, ref_lse
             delta = (do5.float() * out.float()).sum(-1)
             del out
+            before = dict(fa.BWD_ROUTE_LAUNCHES)
             got = fa.flash_bwd(q5, k4, v4, do5, lse, delta, **mask)
             torch.cuda.synchronize()
+            route = next(r for r in before
+                         if fa.BWD_ROUTE_LAUNCHES[r] == before[r] + 2)
+            routes_seen[route] = routes_seen.get(route, 0) + 1
+            # the same inputs again: bitwise the same (one writer an output)
+            again = fa.flash_bwd(q5, k4, v4, do5, lse, delta, **mask)
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+            del again
             want = fa.flash_bwd_reference(q5.float(), k4.float(),
                                           v4.float(), do5.float(), lse,
                                           delta, **mask)
@@ -600,9 +634,17 @@ def phase_bwd_kernels() -> tuple[float, float]:
                     and block_errs[-1] <= BLOCK_REL_TOL[name]
             print(json.dumps({"kernel": "flash_fwd then flash_bwd",
                               "case": case, "dtype": str(dtype),
+                              "route": route, "bitwise_repeat": bitwise,
                               "fwd": fwd, "max_abs_err_dq_dk_dv": errs,
                               "block_rel_err_dq_dk_dv": block_errs,
                               "ok": ok}))
+            if not bitwise:
+                fail(f"flash_bwd gave different bits on the same inputs: "
+                     f"{case} {dtype}")
+            if case in TRAIN_CASES and route != {
+                    torch.float32: "fp32", torch.bfloat16: "wgmma"}[dtype]:
+                fail(f"flash_bwd at a training shape took the {route} "
+                     f"route: {case} {dtype}")
             if not fwd["ok"]:
                 fail(f"flash_fwd disagrees with its plain version: {case} "
                      f"{dtype}")
@@ -614,6 +656,9 @@ def phase_bwd_kernels() -> tuple[float, float]:
                 bwd_err = max(bwd_err, *errs)
             del got, want, lse, delta
     torch.cuda.empty_cache()
+    print(json.dumps({"flash_bwd_cases_by_route": routes_seen}))
+    if set(routes_seen) != {"wgmma", "mma", "fp32"}:
+        fail(f"the backward cases did not reach every route: {routes_seen}")
     return fwd_err, bwd_err
 
 
@@ -1522,8 +1567,25 @@ def _zero_counters() -> None:
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import shard_pack as sp
     fa.LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
+    for route in fa.BWD_ROUTE_LAUNCHES:
+        fa.BWD_ROUTE_LAUNCHES[route] = 0
     qz.QUANT_LAUNCHES = qz.DEQUANT_LAUNCHES = 0
     ck.CHECKSUM_LAUNCHES = sp.PACK_LAUNCHES = sp.UNPACK_LAUNCHES = 0
+
+
+def _routes() -> dict:
+    """The backward's passes by route since the counters were set to 0."""
+    from repro_torch.kernels import flash_attention as fa
+    return dict(fa.BWD_ROUTE_LAUNCHES)
+
+
+def _hold_wgmma_route(what: str, launches: dict, routes: dict) -> None:
+    """Every backward pass counted in ``launches`` (dq and dk/dv) took the
+    wgmma route, by the route counters read with them."""
+    want = {"wgmma": launches["flash_bwd_dq"] + launches["flash_bwd_dkv"],
+            "mma": 0, "fp32": 0}
+    if routes != want:
+        fail(f"{what}: backward passes by route {routes}, want {want}")
 
 
 def _rss_gb() -> float:
@@ -1633,6 +1695,8 @@ def phase_ckpt_train(device="cuda") -> dict:
         out = driver.run(args, cfg=cfg, device=device)
         run_s = time.perf_counter() - t0
         launches = _counters()
+        if device == "cuda":
+            _hold_wgmma_route("checkpointed training", launches, _routes())
     finally:
         driver.build_world = build_world
         Checkpointer.async_save = async_save
@@ -1903,11 +1967,25 @@ def run_train(cfg, fp32_leaves: bool = False) -> dict:
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED_STEPS
     launches = _counters()
+    routes = _routes()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(x) for x in losses]
     norms = [float(x) for x in norms]
     auxes = [float(x) for x in auxes]
     after = float(make_eval_step(cfg, device="cuda")(params, batch))
+    # the same steps with the backward on the mma route's kernels, on the
+    # same card (after the checks; the params go on training)
+    from repro_torch.kernels import flash_attention as fa
+    mma_step_ms = None
+    if n_attn:
+        with forced_route(fa, "mma"):
+            params, state, _ = step(params, state, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_TIMED_STEPS):
+                params, state, _ = step(params, state, batch)
+            torch.cuda.synchronize()
+        mma_step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED_STEPS
 
     L = cfg.n_layers
     n = TRAIN_TIMED_STEPS
@@ -1918,6 +1996,7 @@ def run_train(cfg, fp32_leaves: bool = False) -> dict:
             "shard_unpack": 0}
     if launches != want:
         fail(f"{cfg.name} training launches {launches}, want {want}")
+    _hold_wgmma_route(f"{cfg.name} training", launches, routes)
     if not all(math.isfinite(x) for x in [first_loss, after, *losses,
                                           *norms, *auxes]):
         fail(f"non-finite training loss, grad norm or aux loss: {losses} "
@@ -1936,10 +2015,12 @@ def run_train(cfg, fp32_leaves: bool = False) -> dict:
             "timed_steps": n, "first_loss": first_loss,
             "step_losses": losses, "grad_norms": norms, "aux_losses": auxes,
             "loss_after": after, "step_ms": step_ms,
+            "step_ms_mma_bwd": mma_step_ms,
             "tokens_per_s": B * S / (step_ms / 1e3), "peak_mem_gb": peak_gb,
             "resident_gb": resident_gb, "model_flops_per_step": flops,
             "mfu": flops / (step_ms / 1e3) / BF16_FLOP_PER_S,
-            "launches": launches, "compressed_leaves": n_big,
+            "launches": launches, "bwd_routes": routes,
+            "compressed_leaves": n_big,
             "kernel_vs_plain": {
                 name: {"loss_rel": c["loss_rel"],
                        "grad_norm_rel": c["grad_norm_rel"],
@@ -2273,8 +2354,19 @@ def attn_times(case, iters: int, plain_iters: int, bwd: bool) -> dict:
     out5, lse = fa.flash_fwd(q5, k4, v4, **mask)
     delta = (do5.float() * out5.float()).sum(-1)
     pair = lambda: fa.flash_bwd(q5, k4, v4, do5, lse, delta, **mask)
+    before = dict(fa.BWD_ROUTE_LAUNCHES)
     r["pair_ms"] = cuda_ms(pair, iters=5)
-    per = _profiled_ms(pair, TC_KERNELS["flash_bwd"])
+    r["route"] = next(k for k in before
+                      if fa.BWD_ROUTE_LAUNCHES[k] > before[k])
+    names = (WGMMA_KERNELS if r["route"] == "wgmma"
+             else TC_KERNELS)["flash_bwd"]
+    per = _profiled_ms(pair, names, optional=(REDUCE_KERNEL,))
+    # the mma route's kernels (mma.sync) on the same inputs and card
+    with forced_route(fa, "mma"):
+        r["mma_pair_ms"] = cuda_ms(pair, iters=5)
+        mma = _profiled_ms(pair, TC_KERNELS["flash_bwd"])
+    r["mma_dq_ms"], r["mma_dkv_ms"] = (mma[k] for k in
+                                       TC_KERNELS["flash_bwd"])
     r["plain_pair_ms"] = cuda_ms(lambda: fa.flash_bwd_reference(
         q5, k4, v4, do5, lse, delta, **mask), iters=2, warmup=1)
     qg, kg, vg = (x.detach().requires_grad_() for x in (qh, kh, vh))
@@ -2290,8 +2382,12 @@ def attn_times(case, iters: int, plain_iters: int, bwd: bool) -> dict:
                                   ("pair", 5, nq + 2 * nkv)):
         bound, by = _bound(n_prod * prod, reads + written)
         r[f"{name}_bound_ms"], r[f"{name}_bound_by"] = bound, by
-    r["dq_ms"] = per["flash_bwd_dq_tc_kernel"]
-    r["dkv_ms"] = per["flash_bwd_dkv_tc_kernel"]
+    # the dk/dv pass: its kernel and, with the groups chunked, the sum
+    r["dq_ms"] = per[names[0]]
+    r["dkv_ms"] = per[names[1]] + per[REDUCE_KERNEL]
+    r["dkv_reduce_ms"] = per[REDUCE_KERNEL]
+    r["dkv_chunks"] = fa._dkv_chunks(B, n_kv, Hq // n_kv, case_sk(case), D) \
+        if r["route"] == "wgmma" else 1
     del q, k, v, do, q5, k4, v4, do5, out5, lse, delta, qg, kg, vg
     del sdpa_out, doh, allow
     torch.cuda.empty_cache()
@@ -2399,9 +2495,27 @@ def phase_storage_kernel_times(tree: dict) -> dict:
     return {"checksum": csum, "shard_pack": pack, "shard_unpack": unpack}
 
 
-def _profiled_ms(fn, names, iters: int = 5) -> dict:
+def forced_route(fa, route: str):
+    """A context in which ``flash_bwd`` takes ``route`` whatever its inputs
+    (``_bwd_route`` replaced), to time one design against another on the
+    same inputs; for measurement only."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        real = fa._bwd_route
+        fa._bwd_route = lambda *a: route
+        try:
+            yield
+        finally:
+            fa._bwd_route = real
+    return ctx()
+
+
+def _profiled_ms(fn, names, iters: int = 5, optional=()) -> dict:
     """Device ms per call of each named kernel inside ``fn`` (CUPTI, through
-    torch.profiler), for kernels that one wrapper launches together."""
+    torch.profiler), for kernels that one wrapper launches together; a
+    name in ``optional`` that did not run reads 0."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2412,13 +2526,42 @@ def _profiled_ms(fn, names, iters: int = 5) -> dict:
             fn()
         torch.cuda.synchronize()
     out = {}
-    for name in names:
+    for name in (*names, *optional):
         us = sum(e.time_range.end - e.time_range.start for e in prof.events()
                  if e.device_type == DeviceType.CUDA and name in e.name)
-        if us <= 0:
+        if us <= 0 and name not in optional:
             fail(f"the profiler saw no device time for {name}")
         out[name] = us / 1e3 / iters
     return out
+
+
+def map_build_host_us(case) -> float:
+    """Host microseconds a call of building one pass's four TMA tensor maps
+    (q, dO, k, v) at ``case``'s shape, which the wgmma kernels' wrapper
+    pays at every launch (the library's own clock, no Python in the
+    loop)."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels import build
+    B, S, Hq, n_kv, D = case[:5]
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    _, (q5, k4, v4) = make_qkv(case, torch.bfloat16, gen)
+    rows = torch.zeros((B, n_kv, Hq // n_kv, S), device="cuda")
+    fn = build.load("flash_bwd").flash_bwd_map_us
+    fn.restype = ctypes.c_double
+    fn.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int]
+    dims = (ctypes.c_int64 * 6)(B, n_kv, Hq // n_kv, S, case_sk(case), D)
+    # q, k, v, dO strides (dO laid out as q); the outputs' are not read
+    strides = (ctypes.c_int64 * 24)(*q5.stride()[:4], *k4.stride()[:3],
+                                    *v4.stride()[:3], *q5.stride()[:4])
+    us = fn(q5.data_ptr(), k4.data_ptr(), v4.data_ptr(), q5.data_ptr(),
+            rows.data_ptr(), rows.data_ptr(), dims, strides, MAP_BUILD_REPS)
+    if us < 0:
+        fail(f"the tensor maps could not be built at {case}")
+    return us
 
 
 def phase_train_kernel_times() -> dict:
@@ -2430,6 +2573,7 @@ def phase_train_kernel_times() -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import quantize as qz
     at = attn_times(TRAIN_CASE, iters=5, plain_iters=2, bwd=True)
+    map_us = map_build_host_us(TRAIN_CASE)
     gen = torch.Generator(device="cuda").manual_seed(15)
 
     cfg = get_arch(SLICE_ARCH)
@@ -2469,10 +2613,15 @@ def phase_train_kernel_times() -> dict:
             "flash_bwd_pair_bound_ms": at["pair_bound_ms"],
             "flash_bwd_dq": {"ms": at["dq_ms"],
                              "bound_ms": at["dq_bound_ms"],
-                             "bound_by": at["dq_bound_by"]},
+                             "bound_by": at["dq_bound_by"],
+                             "mma_ms": at["mma_dq_ms"]},
             "flash_bwd_dkv": {"ms": at["dkv_ms"],
                               "bound_ms": at["dkv_bound_ms"],
-                              "bound_by": at["dkv_bound_by"]},
+                              "bound_by": at["dkv_bound_by"],
+                              "mma_ms": at["mma_dkv_ms"]},
+            "flash_bwd_route": at["route"],
+            "flash_bwd_mma_pair_ms": at["mma_pair_ms"],
+            "flash_bwd_map_build_host_us": map_us,
             "flash_bwd_plain_pair_ms": at["plain_pair_ms"],
             "sdpa_backward_ms": at["library_pair_ms"],
             "quantize_per_step": qt, "dequantize_per_step": dt}
@@ -2562,6 +2711,12 @@ def main() -> int:
                   encdec_train_run, vlm_train_run)
     tl = {k: sum(r["launches"][k] for r in train_runs)
           for k in train_run["launches"]}
+    # the backward passes of the training runs by route (all wgmma)
+    routes = {k: sum(r["bwd_routes"][k] for r in train_runs)
+              for k in train_run["bwd_routes"]}
+    bwd_extra = {"route_launches": routes,
+                 "map_build_host_us": tt["flash_bwd_map_build_host_us"],
+                 "mma_route_pair_ms": tt["flash_bwd_mma_pair_ms"]}
     # the shapes of the MoE, hybrid, encoder-decoder and VLM slices, beside
     # the bound and SDPA
     g16 = lambda key: {f"{key}_{fam}_{shape}": t[shape][key]
@@ -2597,7 +2752,9 @@ def main() -> int:
         "ms": tt["flash_bwd_dq"]["ms"], "plain_ms": bwd_plain,
         "bound_ms": tt["flash_bwd_dq"]["bound_ms"],
         "bound_by": tt["flash_bwd_dq"]["bound_by"], "library_ms": sdpa_bwd,
+        "mma_route_ms": tt["flash_bwd_dq"]["mma_ms"], **bwd_extra,
         **g16("dq_ms"), **g16("dq_bound_ms"), **g16("pair_ms"),
+        **g16("mma_dq_ms"), **g16("mma_pair_ms"), **g16("route"),
         **g16("plain_pair_ms"), **g16("library_pair_ms")}, {
         "name": "flash_bwd_dkv", "route": "cuda",
         "source": csrc + "flash_bwd.cu",
@@ -2606,7 +2763,9 @@ def main() -> int:
         "ms": tt["flash_bwd_dkv"]["ms"], "plain_ms": bwd_plain,
         "bound_ms": tt["flash_bwd_dkv"]["bound_ms"],
         "bound_by": tt["flash_bwd_dkv"]["bound_by"], "library_ms": sdpa_bwd,
+        "mma_route_ms": tt["flash_bwd_dkv"]["mma_ms"], **bwd_extra,
         **g16("dkv_ms"), **g16("dkv_bound_ms"), **g16("pair_ms"),
+        **g16("mma_dkv_ms"), **g16("dkv_chunks"), **g16("dkv_reduce_ms"),
         **g16("plain_pair_ms"), **g16("library_pair_ms")}, {
         "name": "quantize", "route": "cuda", "source": csrc + "quantize.cu",
         "replaces": "src/repro/kernels/quantize.py:37",

@@ -25,7 +25,53 @@
 // bound by operations, and only the tensor cores (989 TFLOP/s bf16, dense)
 // can approach the bound.
 //
-// bf16 inputs (dtype 1, the training path): the *_tc kernels below.
+// bf16 inputs take one of two routes, which the caller chooses (route 2 or
+// 1, see the C interface at the end).
+//
+// The wgmma route (the *_wg kernels; bf16, D in {64, 128, 256}, every
+// operand 16-byte aligned: every model's training shape), designed for
+// Hopper's tensor cores and copy engine:
+//   * Three warpgroups a block.  Warpgroup 2 produces: its first thread
+//     keeps a ring of 2 stages of the streamed tiles (k/v in the dq pass;
+//     q/dO in the dk/dv pass) in flight by TMA, full and empty mbarriers a
+//     stage; its first warp copies the tiles' lse/delta rows with 4-byte
+//     cp.async (a TMA box must start 16-byte aligned, a row of odd S does
+//     not), each lane's copies counted by the stage's barrier.  It gives
+//     its registers to the two consumer warpgroups (setmaxnreg 24 / 240).
+//   * Loads by TMA from 5-D (q, dO: D, S, G, H, B) and 4-D (k, v) tensor
+//     maps over the wrapper's strided views, boxes of 64 columns, 128-byte
+//     swizzle, rows past S or Sk filled with zeros.  The maps are built on
+//     the host at every call (cuTensorMapEncodeTiled, found in the
+//     libcuda the process has loaded) and passed as __grid_constant__.
+//   * Products on wgmma, bf16 operands, fp32 accumulators, 64-row
+//     warpgroup tiles: s = q.k^T and dp = dO.v^T with both operands read
+//     from shared memory along D; dq += ds.k, dv += p^T.dO and dk += ds^T.q
+//     with ds or p from registers (the accumulator fragment of s is the A
+//     fragment) and k, dO or q read across their rows (wgmma's transpose
+//     flag), so no operand is transposed by hand.  s and dp are committed
+//     as two groups, and p = exp(s - lse) is computed while dp's products
+//     still run.
+//   * All of D in one block.  dq: 128 q rows a block, 64 a consumer, k/v
+//     tiles of 64 rows (32 at D = 256, so that the 128 accumulators of a
+//     64 x 256 dq fit the 240 registers).  dk/dv: 128 kv rows a block at
+//     D <= 128, each consumer 64 rows with both accumulators; at D = 256
+//     dk and dv (128 registers each) do not fit one warpgroup, so 64 kv
+//     rows a block, one consumer computes s^T, p^T and dv, the other dp^T,
+//     ds^T and dk, and p^T passes between them in fp32 through shared
+//     memory (both hold the same fragment layout).
+//   * The G query groups of a kv head are split over blockIdx.z in the
+//     dk/dv pass where its blocks would be too few (the wrapper's
+//     _dkv_chunks): each chunk of groups sums into fp32 partials, and a
+//     second kernel sums the partials in chunk order and rounds to bf16
+//     once, so each output keeps one writer and stays deterministic.
+//   * The rounding points, the masks and the tile skipping are those of
+//     the mma route below.
+//   * No trap in the consumers' code: ptxas then compiles it to the
+//     block's entry register count (168) instead of 240, and the
+//     accumulators spill; only the producer's waits carry a watchdog.
+//
+// The mma route (the *_tc kernels: bf16 with other D, or views that are not
+// 16-byte aligned):
 //   * Every product runs on the tensor cores as
 //     mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32, fp32 accumulators in
 //     registers, operands fed by ldmatrix (.trans for the operand read
@@ -86,7 +132,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <chrono>
+
 #include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -777,6 +826,633 @@ __global__ void __launch_bounds__(TC_THREADS, MINB)
     }
 }
 
+// ------------------------------------------ bf16: wgmma + TMA path (_wg)
+// Three warpgroups a block: two consumers (warpgroups 0 and 1) that run the
+// products on wgmma, and a producer (warpgroup 2) whose first thread keeps
+// WG_STAGES streamed tiles in flight by TMA (a ring of 2 stages: a third
+// made the dk/dv pass ~5 % slower at D = 128 on an H100, and does not fit
+// at D = 256).  The producer gives its registers to the consumers
+// (setmaxnreg 24 / 240).
+constexpr int WG_THREADS = 384;
+constexpr int WG_STAGES = 2;
+constexpr int WG_CONSUMER_WARPS = 8;
+constexpr int WG_BQ = 64;        // q rows a streamed tile in the dk/dv pass
+
+struct WgParams {
+  CUtensorMap tq, tdo, tk, tv;
+  Params p;
+  float* part;  // dk/dv fp32 partials (2, chunks, B, H, Sk, D) if chunks > 1
+  int chunks;
+};
+
+// The dk/dv pass's consumer roles: both accumulators, or (D == 256) dv
+// with p, or dk with ds.
+constexpr int kRoleBoth = 0, kRoleDv = 1, kRoleDk = 2;
+template <int R>
+struct Role {
+  static constexpr int value = R;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_addr(p);
+  return p + (((a + 1023) & ~1023u) - a);
+}
+
+// True when some (qi, ki) in [qlo, qhi] x [klo, khi] lies in range and is
+// allowed: tiles for which it is false are skipped.
+__device__ __forceinline__ bool tile_live(const Params& p, int qlo, int qhi,
+                                          int klo, int khi) {
+  qhi = min(qhi, p.S - 1);
+  khi = min(khi, p.Sk - 1);
+  if (qlo > qhi || klo > khi) return false;
+  if (p.prefix && klo < p.prefix) return true;
+  bool live = true;
+  if (p.causal) live = qhi >= klo;
+  if (p.window) live = live && (qlo - khi) < p.window;
+  return live;
+}
+
+// K-major descriptor of 16-deep step ks of a 64-row slice of a tile of
+// `rows` rows (step ks lies in column block ks / 4).
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows, int ks) {
+  return sw128_desc(tile + (ks >> 2) * rows * 128 + (ks & 3) * 32, 16, 1024);
+}
+
+// MN-major descriptor of rows [16 t, 16 t + 16) of a tile of `rows` rows,
+// all its column blocks.
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows, int t) {
+  return sw128_desc(tile + t * 16 * 128, rows * 128, 1024);
+}
+
+// 64 x (8 NO) fp32 accumulators of rows r0 + 16 w + lane / 4 (+ 8) into a
+// bf16 output with row stride rs, rows past n dropped.
+template <int NO>
+__device__ __forceinline__ void store_bf16(const float (&acc)[NO][4], bf16* out,
+                                           int64_t rs, int r, int n, int t4) {
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ri = r + 8 * h;
+      if (ri < n)
+        *reinterpret_cast<__nv_bfloat162*>(out + ri * rs + 8 * j + 2 * t4) =
+            __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+}
+
+// The same rows as fp32 partials, rows of 8 NO values.
+template <int NO>
+__device__ __forceinline__ void store_f32(const float (&acc)[NO][4],
+                                          float* out, int r, int n, int t4) {
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ri = r + 8 * h;
+      if (ri < n)
+        *reinterpret_cast<float2*>(out + static_cast<int64_t>(ri) * 8 * NO +
+                                   8 * j + 2 * t4) =
+            make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+}
+
+// dq pass: 128 resident q rows (64 a consumer warpgroup), k/v tiles of BK
+// rows streamed.  s = q.k^T and dp = dO.v^T read q/dO and k/v along D
+// (K-major); dq += ds.k takes ds from registers and reads k across its
+// rows (MN-major).
+template <int D, int BK>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_bwd_dq_wg_kernel(const __grid_constant__ WgParams a) {
+  constexpr int QROWS = 128, NT = BK / 8, NO = D / 8;
+  constexpr uint32_t KV_BYTES = BK * D * 2;
+  const Params& p = a.p;
+  extern __shared__ unsigned char wg_smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(align1024(wg_smem));  // D/64 x 128 x 64
+  bf16* sDO = sQ + QROWS * D;
+  bf16* sK = sDO + QROWS * D;                // WG_STAGES x D/64 x BK x 64
+  bf16* sV = sK + WG_STAGES * BK * D;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sV + WG_STAGES * BK * D);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + WG_STAGES;
+
+  const int n_tiles = (p.S + QROWS - 1) / QROWS;
+  const int q0 = (n_tiles - 1 - static_cast<int>(blockIdx.x)) * QROWS;
+  const int bh = blockIdx.y;
+  const int g = bh % p.G, h = (bh / p.G) % p.H, b = bh / (p.G * p.H);
+  int hi = p.Sk;
+  if (p.causal) hi = min(p.Sk, max(q0 + QROWS, p.prefix));
+  int lo = 0;
+  if (p.window > 0 && p.prefix == 0) lo = max(0, q0 - p.window + 1);
+  lo = (lo / BK) * BK;
+  const int n_kv = hi > lo ? (hi - lo + BK - 1) / BK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int st = 0; st < WG_STAGES; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, WG_CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // warpgroup index, uniform across each warp
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {  // producer
+    regs_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qbar, 2 * QROWS * D * 2);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_5d(sQ + c * QROWS * 64, &a.tq, qbar, 64 * c, q0, g, h, b);
+        tma_load_5d(sDO + c * QROWS * 64, &a.tdo, qbar, 64 * c, q0, g, h, b);
+      }
+      for (int it = 0; it < n_kv; ++it) {
+        const int st = it % WG_STAGES, round = it / WG_STAGES;
+        if (round > 0) mbar_wait_or_trap(empty + st, (round - 1) & 1);
+        mbar_expect_tx(full + st, 2 * KV_BYTES);
+        const int k0 = lo + it * BK;
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(sK + (st * D + 64 * c) * BK, &a.tk, full + st, 64 * c,
+                      k0, h, b);
+          tma_load_4d(sV + (st * D + 64 * c) * BK, &a.tv, full + st, 64 * c,
+                      k0, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  regs_inc<240>();
+  const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int q0w = q0 + 64 * wg;
+  const int qr = q0w + 16 * w + g8;  // this thread's rows: qr and qr + 8
+  const int64_t row0 = (static_cast<int64_t>(b * p.H + h) * p.G + g) * p.S;
+  const float c2 = p.scale * LOG2E;
+  float lse2[2], dlts[2];  // lse in log2 units, delta * scale
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = qr + 8 * r;
+    lse2[r] = qi < p.S ? p.lse[row0 + qi] * LOG2E : 0.f;
+    dlts[r] = qi < p.S ? p.delta[row0 + qi] * p.scale : 0.f;
+  }
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  const uint32_t aQ = smem_addr(sQ) + wg * 64 * 128;
+  const uint32_t aDO = smem_addr(sDO) + wg * 64 * 128;
+  mbar_wait(qbar, 0);
+  for (int it = 0; it < n_kv; ++it) {
+    const int st = it % WG_STAGES;
+    const int k0 = lo + it * BK;
+    mbar_wait(full + st, (it / WG_STAGES) & 1);
+    if (tile_live(p, q0w, q0w + 63, k0, k0 + BK - 1)) {
+      const uint32_t tK = smem_addr(sK + st * BK * D);
+      const uint32_t tV = smem_addr(sV + st * BK * D);
+      float s[NT][4], dp[NT][4];
+      // s = q.k^T, then dp = dO.v^T in a second group, so that p is
+      // computed while dp's products run
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        WgmmaSS<BK>::run(s, kmajor(aQ, QROWS, ks), kmajor(tK, BK, ks), ks);
+      wg_commit();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        WgmmaSS<BK>::run(dp, kmajor(aDO, QROWS, ks), kmajor(tV, BK, ks), ks);
+      wg_commit();
+      wg_wait<1>();
+      fence_acc(s);
+
+      // p = exp(s*scale + mask - lse) in fp32; the per-element mask only
+      // where this warp's 16 x BK patch needs it
+      const bool open = all_open(p, q0w + 16 * w, q0w + 16 * w + 15, k0,
+                                 k0 + BK - 1);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pv;
+          if (open) {
+            pv = exp2_approx(s[j][e] * c2 - lse2[e >> 1]);
+          } else {
+            const int qi = qr + (e >> 1) * 8;
+            const int ki = k0 + 8 * j + 2 * t4 + (e & 1);
+            const float val = allowed(p, qi, ki) ? s[j][e] * c2 : NEG2;
+            pv = (qi < p.S && ki < p.Sk) ? exp2_approx(val - lse2[e >> 1])
+                                         : 0.f;
+          }
+          s[j][e] = pv;
+        }
+      // ds = p * (dp - delta) * scale in fp32
+      wg_wait<0>();
+      fence_acc(dp);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = s[j][e] * (dp[j][e] * p.scale - dlts[e >> 1]);
+      uint32_t ads[NT / 2][4];
+      to_a_frags<NT>(s, ads);
+
+      wg_fence();
+      fence_acc(acc);
+#pragma unroll
+      for (int kt = 0; kt < BK / 16; ++kt)
+        WgmmaRS<D>::run(acc, ads[kt], mnmajor(tK, BK, kt), 1);
+      wg_commit();
+      wg_wait<0>();
+      fence_acc(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st);
+  }
+
+  bf16* dqp = static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh +
+              g * p.dq_sg;
+  store_bf16<NO>(acc, dqp, p.dq_ss, qr, p.S, t4);
+}
+
+// dk/dv pass: resident k/v rows, q/dO tiles of WG_BQ rows (with their lse
+// and delta) streamed over this block's chunk of the G groups and the q
+// range.  s^T = k.q^T and dp^T = v.dO^T read both operands along D; dv +=
+// p^T.dO and dk += ds^T.q take p^T and ds^T from registers and read dO and
+// q across their rows.  D <= 128 (SPLIT false): 128 kv rows a block, each
+// consumer warpgroup 64 of them with both accumulators.  D == 256 (SPLIT):
+// the two accumulators (128 registers each) do not fit one warpgroup, so
+// 64 kv rows a block, warpgroup 0 computes s^T, p and dv, warpgroup 1 dp^T,
+// ds and dk, and p passes from 0 to 1 in fp32 through shared memory (one
+// buffer a stage; both warpgroups hold the same fragment layout, so thread
+// t reads what thread t wrote).
+template <int D, bool SPLIT>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_bwd_dkv_wg_kernel(const __grid_constant__ WgParams a) {
+  constexpr int BQ = WG_BQ, KROWS = SPLIT ? 64 : 128;
+  constexpr int NT = BQ / 8, NO = D / 8;
+  constexpr uint32_t TMA_BYTES = 2 * BQ * D * 2;  // a stage's q and dO
+  const Params& p = a.p;
+  extern __shared__ unsigned char wg_smem[];
+  bf16* sK = reinterpret_cast<bf16*>(align1024(wg_smem));  // D/64 x KROWS x 64
+  bf16* sV = sK + KROWS * D;
+  bf16* sQ = sV + KROWS * D;                  // WG_STAGES x D/64 x BQ x 64
+  bf16* sDO = sQ + WG_STAGES * BQ * D;
+  float* sL = reinterpret_cast<float*>(sDO + WG_STAGES * BQ * D);
+  float* sD = sL + WG_STAGES * BQ;
+  float* sP = sD + WG_STAGES * BQ;            // SPLIT: WG_STAGES x 64 x BQ
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(
+      sP + (SPLIT ? WG_STAGES * 64 * BQ : 0));
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + WG_STAGES;
+
+  const int k0 = blockIdx.x * KROWS;
+  const int bh = blockIdx.y;
+  const int h = bh % p.H, b = bh / p.H;
+  const int g_lo = blockIdx.z * p.G / a.chunks;
+  const int g_hi = (blockIdx.z + 1) * p.G / a.chunks;
+  // q range that can see this kv tile.  A tile holding a prefix column is
+  // seen by every query.
+  int qlo = 0, qhi = p.S;
+  if (!(p.prefix > 0 && k0 < p.prefix)) {
+    if (p.causal) qlo = min(k0, p.S);
+    if (p.window > 0) qhi = min(p.S, min(k0 + KROWS, p.Sk) - 1 + p.window);
+  }
+  qlo = (qlo / BQ) * BQ;
+  const int n_q = qhi > qlo ? (qhi - qlo + BQ - 1) / BQ : 0;
+  const int n_it = (g_hi - g_lo) * n_q;  // (group, q tile), group-major
+  const int64_t rowb = static_cast<int64_t>(b * p.H + h) * p.G * p.S;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int st = 0; st < WG_STAGES; ++st) {
+      mbar_init(full + st, 1 + 32);  // lane 0's expect_tx, 32 lanes' copies
+      mbar_init(empty + st, WG_CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // warpgroup index, uniform across each warp
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {  // producer: its first warp
+    regs_dec<24>();
+    if (threadIdx.x < 256 + 32) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        mbar_expect_tx(kvbar, 2 * KROWS * D * 2);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(sK + c * KROWS * 64, &a.tk, kvbar, 64 * c, k0, h, b);
+          tma_load_4d(sV + c * KROWS * 64, &a.tv, kvbar, 64 * c, k0, h, b);
+        }
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it % WG_STAGES, round = it / WG_STAGES;
+        if (round > 0) mbar_wait_or_trap(empty + st, (round - 1) & 1);
+        const int gg = g_lo + it / n_q, q0 = qlo + (it % n_q) * BQ;
+        if (lane == 0) {
+          mbar_expect_tx(full + st, TMA_BYTES);
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load_5d(sQ + (st * D + 64 * c) * BQ, &a.tq, full + st,
+                        64 * c, q0, gg, h, b);
+            tma_load_5d(sDO + (st * D + 64 * c) * BQ, &a.tdo, full + st,
+                        64 * c, q0, gg, h, b);
+          }
+        }
+        // lse and delta of the tile's rows (zeros past S): 4-byte copies,
+        // which a row of any length allows (TMA needs 16-byte aligned
+        // rows), each lane's landing counted by the stage's barrier
+        const float* lsep = p.lse + rowb + gg * p.S;
+        const float* dltp = p.delta + rowb + gg * p.S;
+#pragma unroll
+        for (int r = 0; r < BQ / 32; ++r) {
+          const int qi = q0 + lane + 32 * r;
+          const bool ok = qi < p.S;
+          cp_async4(smem_addr(sL + st * BQ + lane + 32 * r),
+                    ok ? lsep + qi : p.lse, ok ? 4 : 0);
+          cp_async4(smem_addr(sD + st * BQ + lane + 32 * r),
+                    ok ? dltp + qi : p.delta, ok ? 4 : 0);
+        }
+        mbar_arrive_cp_async(full + st);
+      }
+    }
+    return;
+  }
+
+  regs_inc<240>();
+  const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int k0w = SPLIT ? k0 : k0 + 64 * wg;
+  const int kr = k0w + 16 * w + g8;  // this thread's rows: kr and kr + 8
+  const float c2 = p.scale * LOG2E;
+  const uint32_t aK = smem_addr(sK) + (SPLIT ? 0 : wg * 64 * 128);
+  const uint32_t aV = smem_addr(sV) + (SPLIT ? 0 : wg * 64 * 128);
+
+  // One consumer warpgroup's loop, its role fixed at compile time: both
+  // accumulators, or (SPLIT) dv and p, or dk and ds.
+  auto consume = [&](auto role) {
+    constexpr int R = decltype(role)::value;
+    constexpr bool DO_V = R != kRoleDk, DO_K = R != kRoleDv;
+    float accv[DO_V ? NO : 1][4], acck[DO_K ? NO : 1][4];
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (DO_V) accv[j][e] = 0.f;
+        if constexpr (DO_K) acck[j][e] = 0.f;
+      }
+    mbar_wait(kvbar, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % WG_STAGES;
+      const int q0 = qlo + (it % n_q) * BQ;
+      mbar_wait(full + st, (it / WG_STAGES) & 1);
+      if (tile_live(p, q0, q0 + BQ - 1, k0w, k0w + 63)) {
+        const uint32_t tQ = smem_addr(sQ + st * BQ * D);
+        const uint32_t tDO = smem_addr(sDO + st * BQ * D);
+        const float* cL = sL + st * BQ;
+        const float* cD = sD + st * BQ;
+        float s[NT][4], dp[NT][4];  // s^T then p^T; dp^T then ds^T
+        // s^T, then dp^T in a second group (BOTH), so that p^T is computed
+        // while dp^T's products run
+        constexpr bool TWO = DO_V && DO_K;
+        wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          if constexpr (DO_V)
+            WgmmaSS<BQ>::run(s, kmajor(aK, KROWS, ks), kmajor(tQ, BQ, ks),
+                             ks);
+          if constexpr (DO_K && !TWO)
+            WgmmaSS<BQ>::run(dp, kmajor(aV, KROWS, ks), kmajor(tDO, BQ, ks),
+                             ks);
+        }
+        wg_commit();
+        if constexpr (TWO) {
+#pragma unroll
+          for (int ks = 0; ks < D / 16; ++ks)
+            WgmmaSS<BQ>::run(dp, kmajor(aV, KROWS, ks), kmajor(tDO, BQ, ks),
+                             ks);
+          wg_commit();
+          wg_wait<1>();
+        } else {
+          wg_wait<0>();
+        }
+        fence_acc(s);
+        float* xp = sP + st * 64 * BQ + t;
+        if constexpr (DO_V) {
+          // p^T = exp(s^T*scale + mask - lse) in fp32; the per-element
+          // mask only where this warp's 16 x BQ patch needs it
+          const bool open = all_open(p, q0, q0 + BQ - 1, k0w + 16 * w,
+                                     k0w + 16 * w + 15);
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qc = 8 * j + 2 * t4 + (e & 1);
+              const float l2 = cL[qc] * LOG2E;
+              float pv;
+              if (open) {
+                pv = exp2_approx(s[j][e] * c2 - l2);
+              } else {
+                const int ki = kr + 8 * (e >> 1), qi = q0 + qc;
+                const float val = allowed(p, qi, ki) ? s[j][e] * c2 : NEG2;
+                pv = (qi < p.S && ki < p.Sk) ? exp2_approx(val - l2) : 0.f;
+              }
+              s[j][e] = pv;
+            }
+        }
+        if constexpr (R == kRoleDv) {
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) xp[(4 * j + e) * 128] = s[j][e];
+          named_arrive(1 + st, 256);
+        }
+        if constexpr (R == kRoleDk) {
+          named_sync(1 + st, 256);
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = xp[(4 * j + e) * 128];
+        }
+        if constexpr (TWO) wg_wait<0>();
+        fence_acc(dp);
+        if constexpr (DO_K) {
+          // ds^T = p^T * (dp^T - delta) * scale in fp32
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qc = 8 * j + 2 * t4 + (e & 1);
+              dp[j][e] = s[j][e] * (dp[j][e] * p.scale - cD[qc] * p.scale);
+            }
+        }
+        uint32_t ap[NT / 2][4], ads[NT / 2][4];
+        if constexpr (DO_V) to_a_frags<NT>(s, ap);
+        if constexpr (DO_K) to_a_frags<NT>(dp, ads);
+
+        // dv += p^T.dO and dk += ds^T.q, dO and q read across their rows
+        wg_fence();
+        fence_acc(accv);
+        fence_acc(acck);
+#pragma unroll
+        for (int kt = 0; kt < BQ / 16; ++kt) {
+          if constexpr (DO_V)
+            WgmmaRS<D>::run(accv, ap[kt], mnmajor(tDO, BQ, kt), 1);
+          if constexpr (DO_K)
+            WgmmaRS<D>::run(acck, ads[kt], mnmajor(tQ, BQ, kt), 1);
+        }
+        wg_commit();
+        wg_wait<0>();
+        fence_acc(accv);
+        fence_acc(acck);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);
+    }
+
+    if (a.chunks == 1) {
+      if constexpr (DO_K)
+        store_bf16<NO>(acck, static_cast<bf16*>(p.dk) + b * p.dk_sb +
+                                 h * p.dk_sh, p.dk_ss, kr, p.Sk, t4);
+      if constexpr (DO_V)
+        store_bf16<NO>(accv, static_cast<bf16*>(p.dv) + b * p.dv_sb +
+                                 h * p.dv_sh, p.dv_ss, kr, p.Sk, t4);
+    } else {
+      // partials (which, chunk, b, h, Sk, D); which 0 dk, 1 dv
+      const int64_t blk = static_cast<int64_t>(p.Sk) * D;
+      const int64_t bhc =
+          (static_cast<int64_t>(blockIdx.z) * p.B + b) * p.H + h;
+      const int64_t dv_off = static_cast<int64_t>(a.chunks) * p.B * p.H;
+      if constexpr (DO_K) store_f32<NO>(acck, a.part + bhc * blk, kr, p.Sk, t4);
+      if constexpr (DO_V)
+        store_f32<NO>(accv, a.part + (dv_off + bhc) * blk, kr, p.Sk, t4);
+    }
+  };
+  if constexpr (SPLIT) {
+    if (wg == 0) consume(Role<kRoleDv>{});
+    else consume(Role<kRoleDk>{});
+  } else {
+    consume(Role<kRoleBoth>{});
+  }
+}
+
+// dk and dv from the fp32 partials of the dk/dv pass's group chunks: each
+// value summed over the chunks in order 0, 1, ..., rounded to bf16 once.
+// One thread a group of 4 columns.
+template <int D>
+__global__ void __launch_bounds__(256)
+    flash_bwd_dkv_reduce_kernel(const float* part, Params p, int chunks) {
+  const int64_t blk = static_cast<int64_t>(p.B) * p.H * p.Sk * D;
+  const int64_t n4 = 2 * blk / 4;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       i < n4; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t e = 4 * i;
+    const int which = static_cast<int>(e / blk);
+    const int64_t rest = e - which * blk;
+    const float* src = part + which * chunks * blk + rest;
+    float4 sum = *reinterpret_cast<const float4*>(src);
+    for (int c = 1; c < chunks; ++c) {
+      const float4 x = *reinterpret_cast<const float4*>(src + c * blk);
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    const int64_t row = rest / D;
+    const int d = static_cast<int>(rest - row * D);
+    const int ki = static_cast<int>(row % p.Sk);
+    const int64_t bh = row / p.Sk;
+    const int h = static_cast<int>(bh % p.H), b = static_cast<int>(bh / p.H);
+    bf16* out = which == 0
+                    ? static_cast<bf16*>(p.dk) + b * p.dk_sb + h * p.dk_sh +
+                          ki * p.dk_ss + d
+                    : static_cast<bf16*>(p.dv) + b * p.dv_sb + h * p.dv_sh +
+                          ki * p.dv_ss + d;
+    reinterpret_cast<__nv_bfloat162*>(out)[0] =
+        __floats2bfloat162_rn(sum.x, sum.y);
+    reinterpret_cast<__nv_bfloat162*>(out)[1] =
+        __floats2bfloat162_rn(sum.z, sum.w);
+  }
+}
+
+// The tensor maps of one pass: q and dO as 5-D (D, S, G, H, B), k and v as
+// 4-D (D, Sk, H, B), boxes of 64 columns x the pass's rows.
+bool make_maps(WgParams& a, int q_rows, int kv_rows) {
+  const Params& p = a.p;
+  const int64_t qd[5] = {p.D, p.S, p.G, p.H, p.B};
+  const int64_t qs[5] = {1, p.q_ss, p.q_sg, p.q_sh, p.q_sb};
+  const int64_t ds[5] = {1, p.do_ss, p.do_sg, p.do_sh, p.do_sb};
+  const int64_t kd[4] = {p.D, p.Sk, p.H, p.B};
+  const int64_t ks[4] = {1, p.k_ss, p.k_sh, p.k_sb};
+  const int64_t vs[4] = {1, p.v_ss, p.v_sh, p.v_sb};
+  return bf16_map(&a.tq, p.q, 5, qd, qs, q_rows) &&
+         bf16_map(&a.tdo, p.dout, 5, qd, ds, q_rows) &&
+         bf16_map(&a.tk, p.k, 4, kd, ks, kv_rows) &&
+         bf16_map(&a.tv, p.v, 4, kd, vs, kv_rows);
+}
+
+template <typename Kernel>
+cudaError_t launch_wg_kernel(Kernel kernel, dim3 grid, size_t smem,
+                             cudaStream_t stream, const WgParams& a) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, WG_THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D, int BK>
+cudaError_t launch_dq_wg(WgParams& a, cudaStream_t stream) {
+  if (!make_maps(a, 128, BK)) return cudaErrorInvalidValue;
+  const size_t smem = 1024 + static_cast<size_t>(2 * 128 + 2 * WG_STAGES * BK) *
+                                 D * 2 + (1 + 2 * WG_STAGES) * 8;
+  const dim3 grid((a.p.S + 127) / 128, a.p.B * a.p.H * a.p.G);
+  return launch_wg_kernel(flash_bwd_dq_wg_kernel<D, BK>, grid, smem, stream,
+                          a);
+}
+
+template <int D, bool SPLIT>
+cudaError_t launch_dkv_wg(WgParams& a, cudaStream_t stream) {
+  constexpr int KROWS = SPLIT ? 64 : 128;
+  if (!make_maps(a, WG_BQ, KROWS)) return cudaErrorInvalidValue;
+  const size_t smem =
+      1024 + static_cast<size_t>(2 * KROWS + 2 * WG_STAGES * WG_BQ) * D * 2 +
+      2 * WG_STAGES * WG_BQ * 4 + (SPLIT ? WG_STAGES * 64 * WG_BQ * 4 : 0) +
+      (1 + 2 * WG_STAGES) * 8;
+  const dim3 grid((a.p.Sk + KROWS - 1) / KROWS, a.p.B * a.p.H, a.chunks);
+  cudaError_t err = launch_wg_kernel(flash_bwd_dkv_wg_kernel<D, SPLIT>, grid,
+                                     smem, stream, a);
+  if (err != cudaSuccess || a.chunks == 1) return err;
+  const int64_t n4 = 2LL * a.p.B * a.p.H * a.p.Sk * D / 4;
+  const int64_t want = (n4 + 255) / 256;
+  const int blocks = static_cast<int>(want < 132 * 8 ? want : 132 * 8);
+  flash_bwd_dkv_reduce_kernel<D><<<blocks, 256, 0, stream>>>(a.part, a.p,
+                                                            a.chunks);
+  return cudaGetLastError();
+}
+
+// D 64 and 128: k/v tiles of 64 rows in the dq pass; D 256: of 32 rows, so
+// that dq's 128 accumulators, s, dp and ds fit a consumer's 240 registers
+// and the stages the shared memory.
+cudaError_t launch_wg_for_d(WgParams& a, bool dkv, cudaStream_t stream) {
+  switch (a.p.D) {
+    case 64: return dkv ? launch_dkv_wg<64, false>(a, stream)
+                        : launch_dq_wg<64, 64>(a, stream);
+    case 128: return dkv ? launch_dkv_wg<128, false>(a, stream)
+                         : launch_dq_wg<128, 64>(a, stream);
+    case 256: return dkv ? launch_dkv_wg<256, true>(a, stream)
+                         : launch_dq_wg<256, 32>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename Kernel>
 cudaError_t launch_tc(Kernel kernel, dim3 grid, size_t smem,
                       cudaStream_t stream, const Params& p) {
@@ -871,10 +1547,11 @@ cudaError_t launch_for_d(const Params& p, bool dkv, cudaStream_t stream) {
              : launch_dq<T, 2, 16>(p, stream);
 }
 
-int run(const void* q, const void* k, const void* v, const void* dout,
-        const void* lse, const void* delta, void* dq, void* dk, void* dv,
-        const int64_t* dims, const int64_t* st, int dtype, int causal,
-        int window, int prefix, float scale, void* stream, bool dkv) {
+Params make_params(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dq, void* dk, void* dv, const int64_t* dims,
+                   const int64_t* st, int causal, int window, int prefix,
+                   float scale) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.dout = dout;
   p.lse = static_cast<const float*>(lse);
@@ -903,15 +1580,43 @@ int run(const void* q, const void* k, const void* v, const void* dout,
   for (const void* ptr : operands)
     p.vec = p.vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
   for (int i = 0; i < 14; ++i) p.vec = p.vec && st[i] % 8 == 0;
+  return p;
+}
+
+// The wgmma route's conditions (the wrapper's _bwd_route decides the same
+// from the shape): D in {64, 128, 256}, every operand pointer and stride
+// 16-byte aligned (TMA), lse and delta too.
+bool wg_route_ok(const Params& p) {
+  return (p.D == 64 || p.D == 128 || p.D == 256) && p.vec &&
+         reinterpret_cast<uintptr_t>(p.lse) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(p.delta) % 16 == 0 &&
+         static_cast<int64_t>(p.B) * p.H * p.G * p.S < (int64_t(1) << 31);
+}
+
+int run(const void* q, const void* k, const void* v, const void* dout,
+        const void* lse, const void* delta, void* dq, void* dk, void* dv,
+        const int64_t* dims, const int64_t* st, int dtype, int route,
+        int chunks, void* part, int causal, int window, int prefix,
+        float scale, void* stream, bool dkv) {
+  const Params p = make_params(q, k, v, dout, lse, delta, dq, dk, dv, dims,
+                               st, causal, window, prefix, scale);
   if (p.D < 1 || p.D > 256 || p.S < 1 || p.Sk < 1 ||
       static_cast<int64_t>(p.B) * p.H * p.G > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return static_cast<int>(launch_for_d<float>(p, dkv, s));
-    case 1: return static_cast<int>(launch_tc_for_d(p, dkv, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 0 && dtype == 0)
+    return static_cast<int>(launch_for_d<float>(p, dkv, s));
+  if (route == 1 && dtype == 1)
+    return static_cast<int>(launch_tc_for_d(p, dkv, s));
+  if (route == 2 && dtype == 1 && wg_route_ok(p) && chunks >= 1 &&
+      chunks <= p.G && (chunks == 1 || part != nullptr)) {
+    WgParams a;
+    a.p = p;
+    a.part = static_cast<float*>(part);
+    a.chunks = chunks;
+    return static_cast<int>(launch_wg_for_d(a, dkv, s));
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -920,24 +1625,57 @@ int run(const void* q, const void* k, const void* v, const void* dout,
 // strides (in elements): q b,h,g,s; k b,h,s; v b,h,s; dout b,h,g,s;
 // dq b,h,g,s; dk b,h,s; dv b,h,s.  The last dimension of each is
 // contiguous; lse and delta are contiguous (B, H, G, S) fp32.  dtype: 0
-// float32, 1 bfloat16 (all of q, k, v, dout, dq, dk, dv).  Each call
-// launches one kernel and returns a cudaError_t.
+// float32, 1 bfloat16 (all of q, k, v, dout, dq, dk, dv).  route: 0 the
+// fp32 kernels, 1 the bf16 mma.sync kernels (_tc), 2 the bf16 wgmma
+// kernels (_wg), which the caller chooses; a route that does not take
+// these inputs returns cudaErrorInvalidValue.  chunks (route 2, dk/dv
+// pass): the G groups are summed in that many chunks of blocks, each into
+// fp32 partials in `part` ((2, chunks, B, H, Sk, D) fp32, unused when
+// chunks == 1) that a second kernel sums in order and rounds.  Each call
+// launches one kernel (two for the chunked dk/dv pass) and returns a
+// cudaError_t.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, void* dk, void* dv,
                             const int64_t* dims, const int64_t* strides,
-                            int dtype, int causal, int window, int prefix,
-                            float scale, void* stream) {
+                            int dtype, int route, int chunks, void* part,
+                            int causal, int window, int prefix, float scale,
+                            void* stream) {
   return run(q, k, v, dout, lse, delta, dq, dk, dv, dims, strides, dtype,
-             causal, window, prefix, scale, stream, false);
+             route, chunks, part, causal, window, prefix, scale, stream,
+             false);
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dq, void* dk, void* dv,
                              const int64_t* dims, const int64_t* strides,
-                             int dtype, int causal, int window, int prefix,
-                             float scale, void* stream) {
+                             int dtype, int route, int chunks, void* part,
+                             int causal, int window, int prefix, float scale,
+                             void* stream) {
   return run(q, k, v, dout, lse, delta, dq, dk, dv, dims, strides, dtype,
-             causal, window, prefix, scale, stream, true);
+             route, chunks, part, causal, window, prefix, scale, stream,
+             true);
+}
+
+// Host microseconds a call of building one pass's four tensor maps (the
+// dk/dv pass's: q, dO, k, v), the mean over `reps` builds; -1 if a map
+// cannot be built for these inputs.  For measurement: each launch on the
+// wgmma route builds its maps so.
+extern "C" double flash_bwd_map_us(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const void* lse, const void* delta,
+                                   const int64_t* dims,
+                                   const int64_t* strides, int reps) {
+  WgParams a;
+  a.p = make_params(q, k, v, dout, lse, delta, nullptr, nullptr, nullptr,
+                    dims, strides, 1, 0, 0, 1.f);
+  a.chunks = 1;
+  a.part = nullptr;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps; ++i)
+    if (!make_maps(a, WG_BQ, 128)) return -1.0;
+  const std::chrono::duration<double, std::micro> us =
+      std::chrono::steady_clock::now() - t0;
+  return us.count() / (reps > 0 ? reps : 1);
 }

@@ -11,6 +11,14 @@ tensor each computes its plain twin (``flash_fwd_reference``,
 on-card oracle.  ``LAUNCHES`` (forward), ``BWD_DQ_LAUNCHES`` and
 ``BWD_DKV_LAUNCHES`` count kernel launches and nothing else.
 
+The backward has three routes, which ``_bwd_route`` chooses from the
+inputs' dtype, shape, pointers and strides alone: ``"wgmma"`` (bf16, D in
+64/128/256, every operand 16-byte aligned: the warp-specialised wgmma +
+TMA kernels, ``*_wg``), ``"mma"`` (other bf16 inputs: the ``mma.sync``
+kernels, ``*_tc``) and ``"fp32"``.  ``BWD_ROUTE_LAUNCHES`` counts the passes
+(dq and dk/dv each one) that each route launched; a route's kernels that
+refuse their inputs raise, and no other route is tried.
+
 ``flash_fwd_op`` and ``flash_bwd_op`` are the same entry points registered
 as PyTorch custom ops (``repro_torch::flash_fwd``, ``::flash_bwd``), which
 the model calls through ``ops.flash_attention``: on a CUDA or CPU tensor
@@ -40,6 +48,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES = 0
 BWD_DQ_LAUNCHES = 0
 BWD_DKV_LAUNCHES = 0
+BWD_ROUTE_LAUNCHES = {"wgmma": 0, "mma": 0, "fp32": 0}
+_ROUTE_CODES = {"fp32": 0, "mma": 1, "wgmma": 2}
+WG_HEAD_DIMS = (64, 128, 256)
+# The H100's SM count, fixed here (not read from the card) so that the
+# chunking, and with it every rounding, depends on the shape alone.
+NUM_SMS = 132
 
 
 def _allow(S, Sk, causal, window, prefix, device):
@@ -188,13 +202,23 @@ def flash_bwd(q, k, v, do, lse, delta, *, causal=True, window=0, prefix=0,
                      device=q.device).permute(0, 2, 1, 3)
     dv = torch.empty((B, Sk, H, D), dtype=v.dtype,
                      device=q.device).permute(0, 2, 1, 3)
+    in_strides = (*q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
+                  *do.stride()[:4])
+    route = _bwd_route(q.dtype, tuple(q.shape),
+                       [t.data_ptr() for t in (q, k, v, do, lse, delta)],
+                       in_strides)
+    chunks = _dkv_chunks(B, H, G, Sk, D) if route == "wgmma" else 1
+    # the chunked dk/dv pass's fp32 partials, summed by its second kernel
+    part = torch.empty((2, chunks, B, H, Sk, D), dtype=torch.float32,
+                       device=q.device) if chunks > 1 else None
     dims = (ctypes.c_int64 * 6)(B, H, G, S, Sk, D)
     strides = (ctypes.c_int64 * 24)(
-        *q.stride()[:4], *k.stride()[:3], *v.stride()[:3], *do.stride()[:4],
-        *dq.stride()[:4], *dk.stride()[:3], *dv.stride()[:3])
+        *in_strides, *dq.stride()[:4], *dk.stride()[:3], *dv.stride()[:3])
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dims, strides, _DTYPE_CODES[q.dtype], int(causal),
+            dv.data_ptr(), dims, strides, _DTYPE_CODES[q.dtype],
+            _ROUTE_CODES[route], chunks,
+            None if part is None else part.data_ptr(), int(causal),
             int(window), int(prefix),
             float(scale if scale else 1.0 / math.sqrt(D)))
     global BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
@@ -202,15 +226,46 @@ def flash_bwd(q, k, v, do, lse, delta, *, causal=True, window=0, prefix=0,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _bwd_kernel("flash_bwd_dq")(*args, stream)
         if err != 0:
-            raise RuntimeError(f"flash_bwd dq kernel launch failed: "
-                               f"cudaError {err}")
+            raise RuntimeError(f"flash_bwd dq kernel launch failed "
+                               f"({route} route): cudaError {err}")
         BWD_DQ_LAUNCHES += 1
+        BWD_ROUTE_LAUNCHES[route] += 1
         err = _bwd_kernel("flash_bwd_dkv")(*args, stream)
         if err != 0:
-            raise RuntimeError(f"flash_bwd dk/dv kernel launch failed: "
-                               f"cudaError {err}")
+            raise RuntimeError(f"flash_bwd dk/dv kernel launch failed "
+                               f"({route} route): cudaError {err}")
         BWD_DKV_LAUNCHES += 1
+        BWD_ROUTE_LAUNCHES[route] += 1
     return dq, dk, dv
+
+
+def _bwd_route(dtype, shape, ptrs, strides) -> str:
+    """The backward kernels that take these inputs: ``"fp32"`` for fp32;
+    for bf16 ``"wgmma"`` where D is 64, 128 or 256, every pointer in
+    ``ptrs`` (q, k, v, dO, lse, delta) and every stride in ``strides``
+    (elements, the last dimension's left out) is 16-byte aligned, as TMA
+    needs, and the B H G S rows of lse fit an int32 coordinate; else
+    ``"mma"``.  ``shape`` is q's (B, n_kv, G, S, D)."""
+    if dtype == torch.float32:
+        return "fp32"
+    B, H, G, S, D = shape
+    aligned = all(p % 16 == 0 for p in ptrs) and \
+        all(s % 8 == 0 for s in strides)
+    rows_fit = B * H * G * S < 2 ** 31
+    return "wgmma" if D in WG_HEAD_DIMS and aligned and rows_fit else "mma"
+
+
+def _dkv_chunks(B, H, G, Sk, D) -> int:
+    """Chunks of the G query groups in the wgmma dk/dv pass.  A block holds
+    128 kv rows (64 at D = 256) of one (batch, kv head) and, unchunked,
+    loops over all G groups; where those blocks are fewer than 4 a card's
+    SM (``NUM_SMS``), the groups are split into the fewest chunks that
+    reach 4 blocks an SM, at most G (one group a chunk).  Chunk c takes
+    groups [c G / n, (c + 1) G / n), so a count that does not divide G
+    gives chunks of unequal size."""
+    rows = 64 if D == 256 else 128
+    blocks = -(-Sk // rows) * B * H
+    return max(1, min(G, -(-4 * NUM_SMS // blocks)))
 
 
 def _fwd_kernel():
@@ -230,8 +285,9 @@ def _bwd_kernel(name):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 9 + [
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_void_p]
     return fn
 
 

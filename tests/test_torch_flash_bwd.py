@@ -86,12 +86,14 @@ def _bf16(x):
 
 
 def _bwd_tensor_core_roundings(q, k, v, do, lse, delta, causal, window,
-                               prefix):
-    """The bf16 backward kernels' arithmetic (csrc/flash_bwd.cu, *_tc): s and
-    dP as fp32 sums of exact products of bf16 inputs, p and ds in fp32, p and
-    ds rounded to bf16 before p.dO, ds.k and ds.q, fp32 sums, and dq, dk, dv
-    rounded to bf16 once."""
-    S, Sk, D = q.shape[3], k.shape[2], q.shape[4]
+                               prefix, chunks=1):
+    """The bf16 backward kernels' arithmetic (csrc/flash_bwd.cu, *_tc and
+    *_wg): s and dP as fp32 sums of exact products of bf16 inputs, p and ds
+    in fp32, p and ds rounded to bf16 before p.dO, ds.k and ds.q, fp32 sums,
+    and dq, dk, dv rounded to bf16 once.  ``chunks``: the wgmma dk/dv pass's
+    group split, each chunk of the G groups ([c G / n, (c + 1) G / n)) summed
+    into fp32 partials, the partials summed in chunk order, then rounded."""
+    S, Sk, D, G = q.shape[3], k.shape[2], q.shape[4], q.shape[2]
     scale = 1.0 / np.sqrt(D)
     allow = fa._allow(S, Sk, causal, window, prefix, "cpu")
     s = torch.einsum("bhgqd,bhkd->bhgqk", q, k) * scale
@@ -100,19 +102,33 @@ def _bwd_tensor_core_roundings(q, k, v, do, lse, delta, causal, window,
     ds = p * (dp - delta[..., None]) * scale
     p, ds = _bf16(p), _bf16(ds)
     dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k)
-    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, q)
-    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, do)
+    dk = dv = 0.0
+    bounds = [c * G // chunks for c in range(chunks + 1)]
+    for lo, hi in zip(bounds, bounds[1:]):
+        dk = dk + torch.einsum("bhgqk,bhgqd->bhkd", ds[:, :, lo:hi],
+                               q[:, :, lo:hi])
+        dv = dv + torch.einsum("bhgqk,bhgqd->bhkd", p[:, :, lo:hi],
+                               do[:, :, lo:hi])
     return _bf16(dq), _bf16(dk), _bf16(dv)
 
 
-@pytest.mark.parametrize("case", CASES + [
-    (1, 80, 4, 2, 128, True, 0, 0),     # S not a multiple of 64-row tiles
-    (2, 64, 4, 2, 40, True, 0, 0),      # D zero-padded to 48 in the kernel
-])
-def test_bf16_tensor_core_roundings_match_pallas_kernel(case):
-    """The rounding points of the bf16 tensor-core kernels, emulated on the
-    CPU, against the JAX ``flash_bwd_pallas`` (interpret mode, fp32) on the
-    same bf16-rounded inputs, under chip_smoke.py's bf16 limits."""
+def _assert_bf16_limits(got, want):
+    """chip_smoke.py's bf16 limits: elementwise, and in 8 row blocks."""
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        w = torch.tensor(np.asarray(w))
+        assert g.shape == w.shape
+        torch.testing.assert_close(
+            g, w, rtol=BF16_GRAD_TOL,
+            atol=BF16_GRAD_TOL * float(w.abs().max()), msg=name)
+        for i, (gb, wb) in enumerate(zip(torch.tensor_split(g, 8, -2),
+                                         torch.tensor_split(w, 8, -2))):
+            rel = float((gb - wb).norm() / wb.norm())
+            assert rel <= BF16_BLOCK_REL_TOL, (name, i, rel)
+
+
+def _bf16_case_vs_pallas(case, chunks=1):
+    """A case's bf16-rounded inputs through the JAX ``flash_bwd_pallas``
+    (interpret mode, fp32) and the emulation of the bf16 kernels."""
     B, S, Hq, n_kv, D, causal, window, prefix = case
     q, k, v, do = (_bf16(a).numpy() for a in _mk(case, seed=S + 3 * D))
     q5, do5 = _five_d(q, n_kv), _five_d(do, n_kv)
@@ -131,17 +147,35 @@ def test_bf16_tensor_core_roundings_match_pallas_kernel(case):
                             bk=16, interpret=True, **mask)
     got = _bwd_tensor_core_roundings(
         *(torch.from_numpy(a) for a in (q5, k4, v4, do5, lse, delta)),
-        **mask)
-    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
-        w = torch.tensor(np.asarray(w))
-        assert g.shape == w.shape
-        torch.testing.assert_close(
-            g, w, rtol=BF16_GRAD_TOL,
-            atol=BF16_GRAD_TOL * float(w.abs().max()), msg=name)
-        for i, (gb, wb) in enumerate(zip(torch.tensor_split(g, 8, -2),
-                                         torch.tensor_split(w, 8, -2))):
-            rel = float((gb - wb).norm() / wb.norm())
-            assert rel <= BF16_BLOCK_REL_TOL, (name, i, rel)
+        **mask, chunks=chunks)
+    return got, want
+
+
+@pytest.mark.parametrize("case", CASES + [
+    (1, 80, 4, 2, 128, True, 0, 0),     # S not a multiple of 64-row tiles
+    (2, 64, 4, 2, 40, True, 0, 0),      # D zero-padded to 48 in the kernel
+])
+def test_bf16_tensor_core_roundings_match_pallas_kernel(case):
+    """The rounding points of the bf16 tensor-core kernels, emulated on the
+    CPU, against the JAX ``flash_bwd_pallas`` (interpret mode, fp32) on the
+    same bf16-rounded inputs, under chip_smoke.py's bf16 limits."""
+    _assert_bf16_limits(*_bf16_case_vs_pallas(case))
+
+
+@pytest.mark.parametrize("case,chunks", [
+    ((2, 64, 4, 4, 64, True, 0, 0), 1),        # G = 1: no split
+    ((2, 64, 4, 2, 128, True, 0, 16), 2),      # G = 2, one group a chunk
+    ((1, 80, 8, 1, 256, True, 0, 16), 3),      # G = 8, 3 chunks of 2-3
+    ((1, 64, 16, 1, 128, True, 0, 0), 3),      # G = 16, 3 chunks of 5-6
+    ((1, 96, 16, 1, 64, True, 32, 0), 5),      # G = 16, window, 5 chunks
+    ((1, 64, 16, 1, 256, False, 0, 0), 16),    # G = 16, one group a chunk
+])
+def test_bf16_group_split_roundings_match_pallas_kernel(case, chunks):
+    """The wgmma dk/dv pass's group split, emulated: fp32 partials a chunk
+    of groups, summed in chunk order and rounded to bf16 once, against the
+    JAX kernel under the same limits (chunk counts that divide G and that
+    do not)."""
+    _assert_bf16_limits(*_bf16_case_vs_pallas(case, chunks))
 
 
 def _grads_torch(fn, q, k, v, do):

@@ -7,6 +7,7 @@ and skip elsewhere.  Run them on the card with
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py``.
 """
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -40,6 +41,8 @@ CASES = [
     (2, 2048, 16, 16, 64, True, 0, 0),   # seamless training
     (4, 1024, 8, 1, 256, True, 0, 256),  # paligemma serving: prefix 256
     (2, 4096, 8, 1, 256, True, 0, 256),  # paligemma training
+    (1, 100, 4, 1, 256, True, 0, 0),     # D = 256, S ragged against 64 rows
+    (3, 1024, 33, 11, 64, True, 0, 0),   # G = 3 in 2 chunks: 1 and 2 groups
 ]
 # Cross-attention, bidirectional with Sq != Sk: (B, Sq, Sk, Hq, n_kv, D).
 # seamless's decode identity (513 decoder queries over 512 encoder keys),
@@ -49,6 +52,7 @@ CROSS_CASES = [
     (2, 2048, 1000, 16, 16, 64),
     (2, 200, 333, 4, 2, 128),
     (1, 77, 300, 8, 1, 256),
+    (2, 333, 130, 8, 2, 256),            # D = 256, Sq > Sk, G = 4 chunked
 ]
 # fp32: the reference tests' 3e-4 (the scalar fp32 kernel).  bf16: the
 # tensor-core kernel sums exact products of the bf16 inputs in fp32, rounds
@@ -69,6 +73,19 @@ GRAD_TOL = {torch.float32: (4e-3, 4e-3), torch.bfloat16: (1e-2, 1e-2)}
 # and the output give 2.4-2.7e-3 in their emulation on the CPU,
 # tests/test_torch_flash_bwd.py; fp32 differs only in summation order).
 BLOCK_REL_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+
+
+def _want_route(dtype, D):
+    """The backward's route for the standard (model-layout) views."""
+    if dtype == torch.float32:
+        return "fp32"
+    return "wgmma" if D in fa.WG_HEAD_DIMS else "mma"
+
+
+def _assert_route(before, route):
+    """One flash_bwd since ``before``: both passes on ``route``."""
+    moved = {k: fa.BWD_ROUTE_LAUNCHES[k] - before[k] for k in before}
+    assert moved == {k: 2 if k == route else 0 for k in before}, moved
 
 
 def _assert_row_blocks_close(got, want, dtype, name):
@@ -236,10 +253,12 @@ def _bwd_inputs(case, dtype, cuda):
 def test_flash_bwd_kernels_match_plain_version(cuda, case, dtype):
     args, mask = _bwd_inputs(case, dtype, cuda)
     before = (fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+    routes = dict(fa.BWD_ROUTE_LAUNCHES)
     got = fa.flash_bwd(*args, **mask)
     torch.cuda.synchronize()
     assert (fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES) == \
         (before[0] + 1, before[1] + 1)
+    _assert_route(routes, _want_route(dtype, case[4]))
     q5, k4, v4, do5, lse, delta = args
     want = fa.flash_bwd_reference(q5.float(), k4.float(), v4.float(),
                                   do5.float(), lse, delta, **mask)
@@ -276,7 +295,9 @@ def test_flash_kernels_at_sq_ne_sk_match_plain_version(cuda, case, dtype):
     torch.testing.assert_close(lse, ref_lse, rtol=1e-3, atol=1e-3)
     _assert_row_blocks_close(out, ref_out, dtype, "out")
     delta = (do5.float() * out.float()).sum(-1)
+    routes = dict(fa.BWD_ROUTE_LAUNCHES)
     got = fa.flash_bwd(q5, k4, v4, do5, lse, delta, **mask)
+    _assert_route(routes, _want_route(dtype, D))
     want = fa.flash_bwd_reference(q5.float(), k4.float(), v4.float(),
                                   do5.float(), lse, delta, **mask)
     rtol, atol = GRAD_TOL[dtype]
@@ -286,6 +307,63 @@ def test_flash_kernels_at_sq_ne_sk_match_plain_version(cuda, case, dtype):
         torch.testing.assert_close(g.float(), w, rtol=rtol,
                                    atol=atol * scale, msg=name)
         _assert_row_blocks_close(g, w, dtype, name)
+
+
+@pytest.mark.parametrize("view", ["q_offset", "do_offset", "kv_row_pitch"])
+def test_flash_bwd_unaligned_views_take_the_mma_route(cuda, view):
+    """bf16 at D = 128, but a view TMA cannot read (a pointer 2 bytes past
+    a 16-byte boundary, or k/v rows 132 values apart): the mma.sync
+    kernels run it, at the bf16 limits."""
+    B, S, Hq, n_kv, D = 2, 200, 8, 2, 128
+    gen = torch.Generator(device=cuda).manual_seed(6)
+
+    def make(shape, name):
+        if view == f"{name}_offset":
+            buf = torch.randn(math.prod(shape) + 1, generator=gen,
+                              device=cuda)
+            return buf.to(torch.bfloat16)[1:].view(shape)
+        if view == "kv_row_pitch" and name in ("k", "v"):
+            wide = torch.randn((*shape[:3], D + 4), generator=gen,
+                               device=cuda)
+            return wide.to(torch.bfloat16)[..., :D]
+        return torch.randn(shape, generator=gen, device=cuda) \
+            .to(torch.bfloat16)
+
+    five = lambda x: x.reshape(B, S, n_kv, Hq // n_kv, D) \
+        .permute(0, 2, 3, 1, 4)
+    q5, do5 = five(make((B, S, Hq, D), "q")), five(make((B, S, Hq, D), "do"))
+    k4 = make((B, S, n_kv, D), "k").permute(0, 2, 1, 3)
+    v4 = make((B, S, n_kv, D), "v").permute(0, 2, 1, 3)
+    out, lse = fa.flash_fwd(q5, k4, v4, causal=True)
+    delta = (do5.float() * out.float()).sum(-1)
+    routes = dict(fa.BWD_ROUTE_LAUNCHES)
+    got = fa.flash_bwd(q5, k4, v4, do5, lse, delta, causal=True)
+    torch.cuda.synchronize()
+    _assert_route(routes, "mma")
+    want = fa.flash_bwd_reference(q5.float(), k4.float(), v4.float(),
+                                  do5.float(), lse, delta, causal=True)
+    rtol, atol = GRAD_TOL[torch.bfloat16]
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        torch.testing.assert_close(g.float(), w, rtol=rtol,
+                                   atol=atol * float(w.abs().max()), msg=name)
+        _assert_row_blocks_close(g, w, torch.bfloat16, name)
+
+
+def test_flash_bwd_is_deterministic_with_the_group_split(cuda):
+    """qwen3-moe's training shape (G = 16 query heads a KV head, its
+    groups split over 3 chunks of blocks in the dk/dv pass): two runs on
+    the same inputs give the same bits in dq, dk and dv."""
+    case = (2, 4096, 64, 4, 128, True, 0, 0)
+    assert fa._dkv_chunks(2, 4, 16, 4096, 128) == 3
+    args, mask = _bwd_inputs(case, torch.bfloat16, cuda)
+    routes = dict(fa.BWD_ROUTE_LAUNCHES)
+    first = fa.flash_bwd(*args, **mask)
+    second = fa.flash_bwd(*args, **mask)
+    torch.cuda.synchronize()
+    moved = {k: fa.BWD_ROUTE_LAUNCHES[k] - routes[k] for k in routes}
+    assert moved == {"wgmma": 4, "mma": 0, "fp32": 0}
+    for a, b, name in zip(first, second, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), name
 
 
 def _groups(cuda, dtype, n_groups=64):
