@@ -10,16 +10,18 @@ Phases, each fatal on failure:
 1. print the card's name and power limit; build every kernel from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel)
    and check that the bf16 flash-attention kernels multiply on the tensor
-   cores (HMMA/HGMMA instructions in their SASS), the backward's wgmma
-   kernels (``WGMMA_KERNELS``) on wgmma (HGMMA);
+   cores (HMMA/HGMMA instructions in their SASS), the forward's and the
+   backward's wgmma kernels (``WGMMA_KERNELS``) on wgmma (HGMMA) with no
+   register spilled (ptxas -v);
 2. hold each kernel against its plain torch version on the card: flash
    attention forward and backward in fp32 and bf16 at the reference tests'
    cases, a ragged S, D=256 and the slices' shapes (the MoE slices' GQA
    with G = 16 query heads a KV head and the hybrid's MQA with G = 16,
    D = 256 and window 2048 among them), the backward fed the
-   forward kernel's own ``out`` and ``lse``, its cases reaching each of
-   its routes (wgmma, mma, fp32; every training shape on wgmma in bf16)
-   and each run twice, bit for bit the same; quantize / dequantize
+   forward kernel's own ``out`` and ``lse``, the cases of each pass
+   reaching each of its routes (wgmma, mma, fp32; every serving and
+   training shape on wgmma in bf16) and each run twice, bit for bit the
+   same; quantize / dequantize
    bit for bit on a layer-sized gradient, an all-zero group and .5 ties;
    checksum and stripe pack / unpack bit for bit, the checksum also
    against ``core.integrity.checksum`` of the host bytes, up to a
@@ -30,8 +32,11 @@ Phases, each fatal on failure:
    1024 tokens through ``make_prefill_step``, then 32 greedy
    ``make_decode_step`` steps; every launch counter is set to 0 just before
    and read just after, and the kernel must have run once per layer;
-   check the outputs (finite logits, kernel path vs the plain blockwise
-   path, decode at position S vs a prefill of S+1 tokens);
+   every ``flash_fwd`` launch must have taken the wgmma route
+   (``flash_attention.FWD_ROUTE_LAUNCHES``), as in every serving and
+   training phase below; check the outputs (finite logits, kernel path vs
+   the plain blockwise path, decode at position S vs a prefill of S+1
+   tokens);
    then offload a session's KV cache through the store and bring it back:
    a full-width, full-depth prefill of the same prompts (its 2.08 GB bf16
    cache), ``ServeScheduler.offload`` over a ``KVCacheStore`` bound to the
@@ -48,9 +53,10 @@ Phases, each fatal on failure:
    norm and per-leaf gradients against the plain path's from the same
    params and batch, then run ``make_train_step`` once to warm up and 3
    timed steps with every launch counter set to 0 just before and read
-   just after (exact counts per step; every backward pass on the wgmma
-   route, ``flash_attention.BWD_ROUTE_LAUNCHES``), and check the loss
-   falls;
+   just after (exact counts per step; every forward launch and backward
+   pass on the wgmma route, ``flash_attention.BWD_ROUTE_LAUNCHES``), and
+   check the loss falls; then the same steps timed with the backward, and
+   with the forward, forced onto the mma.sync kernels;
    then the MoE family: qwen3-moe-235b-a22b at full width, its depth cut,
    serving (8 layers; the serving slice's prompts and decode steps with
    exact launch counts, each layer's drop fraction, decode at S against a
@@ -107,9 +113,10 @@ Phases, each fatal on failure:
 6. time the slices and each kernel against its bound, its plain version and
    the nearest PyTorch call, the flash kernels also at the MoE, hybrid,
    encoder-decoder and VLM slices' shapes (SDPA with an explicit boolean
-   mask under a window or prefix, and the backend it takes); the
-   backward pair also on its mma.sync kernels (the mma route) on the same
-   inputs, and the host time of building its TMA tensor maps.
+   mask under a window or prefix, and the backend it takes); the forward
+   and the backward pair also on their mma.sync kernels (the mma route)
+   on the same inputs, and the host time of building the backward's TMA
+   tensor maps.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the kernels' JSON record, and the card's line precedes that.
@@ -385,10 +392,13 @@ CKPT_KILL_AT = 7
 TC_KERNELS = {"flash_fwd": ("flash_fwd_tc_kernel",),
               "flash_bwd": ("flash_bwd_dq_tc_kernel",
                             "flash_bwd_dkv_tc_kernel")}
-# The backward's wgmma route (bf16, D in {64, 128, 256}, aligned views:
-# every training shape), whose SASS must hold HGMMA (wgmma) instructions.
-WGMMA_KERNELS = {"flash_bwd": ("flash_bwd_dq_wg_kernel",
+# The wgmma routes (bf16, D in {64, 128, 256}, aligned views: every serving
+# and training shape), whose SASS must hold HGMMA (wgmma) instructions and
+# whose ptxas report must show no spilled register.
+WGMMA_KERNELS = {"flash_fwd": ("flash_fwd_wg_kernel",),
+                 "flash_bwd": ("flash_bwd_dq_wg_kernel",
                                "flash_bwd_dkv_wg_kernel")}
+ROUTES = ("wgmma", "mma", "fp32")
 # its dk/dv pass's second kernel where the G groups are chunked
 REDUCE_KERNEL = "flash_bwd_dkv_reduce_kernel"
 # host microseconds of building one pass's tensor maps, over this many
@@ -509,6 +519,23 @@ def sass_mma_counts(lib, names, pattern=r"\bH(?:G)?MMA\b") -> dict | None:
     return counts
 
 
+def ptxas_spills(log: str, names) -> dict:
+    """Spilled bytes (stores + loads) that ``ptxas -v`` reports for each
+    function in ``log`` whose name holds one of ``names``."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1) if any(k in m.group(1) for k in names) else None
+            continue
+        s = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if fn and s:
+            out[fn] = int(s.group(1)) + int(s.group(2))
+            fn = None
+    return out
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -534,47 +561,93 @@ def phase_build() -> None:
         if any(not any(k in fn for fn in counts) for k in names) \
                 or not all(counts.values()):
             fail(f"a {lib} wgmma kernel has no HGMMA instruction: {counts}")
+        if lib not in logs:
+            fail(f"{lib} was not built by this run, so its ptxas report is "
+                 f"missing (remove build/)")
+        spills = ptxas_spills(logs[lib], names)
+        print(json.dumps({"ptxas_spill_bytes": spills}))
+        if any(not any(k in fn for fn in spills) for k in names) \
+                or any(spills.values()):
+            fail(f"a {lib} wgmma kernel spills registers: {spills}")
+
+
+def moved_route(counts: dict, before: dict, by: int) -> str:
+    """The one route whose launch count moved, by ``by``, since
+    ``before``; fails on any other movement."""
+    moved = [r for r in before if counts[r] != before[r]]
+    if len(moved) != 1 or counts[moved[0]] != before[moved[0]] + by:
+        fail(f"launches by route moved from {before} to {counts}")
+    return moved[0]
+
+
+def want_fwd_route(case, dtype) -> str | None:
+    """The route a serving or training shape must take (wgmma in bf16,
+    fp32 in fp32); None for the other cases."""
+    import torch
+    if case not in SERVE_CASES + TRAIN_CASES + (ENCDEC_CROSS_CASE,):
+        return None
+    return "wgmma" if dtype == torch.bfloat16 else "fp32"
 
 
 def phase_kernels() -> float:
-    """Kernel vs plain version on the card; returns the largest bf16
-    |out error| at the serving slices' shapes (deepseek-7b, qwen3-moe,
-    recurrentgemma-9b, seamless-m4t-large-v2 and paligemma-3b)."""
+    """Kernel vs plain version on the card, each launch's route printed
+    (every serving and training shape on wgmma in bf16, the cases on all
+    three routes); returns the largest bf16 |out error| at the serving
+    slices' shapes (deepseek-7b, qwen3-moe, recurrentgemma-9b,
+    seamless-m4t-large-v2 and paligemma-3b)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(11)
     slice_err = 0.0
+    routes_seen = {}
     for case in KERNEL_CASES:
         mask = case_mask(case)
         for dtype in (torch.float32, torch.bfloat16):
             _, (q5, k4, v4) = make_qkv(case, dtype, gen)
+            before = dict(fa.FWD_ROUTE_LAUNCHES)
             out, lse = fa.flash_fwd(q5, k4, v4, **mask)
             torch.cuda.synchronize()
+            route = moved_route(fa.FWD_ROUTE_LAUNCHES, before, 1)
+            routes_seen[route] = routes_seen.get(route, 0) + 1
+            # the same inputs again: bitwise the same (one writer a row)
+            again = fa.flash_fwd(q5, k4, v4, **mask)
+            bitwise = torch.equal(out, again[0]) and \
+                torch.equal(lse, again[1])
+            del again
             ref_out, ref_lse = fa.flash_fwd_reference(
                 q5.float(), k4.float(), v4.float(), **mask)
             r = check_fwd(out, lse, ref_out, ref_lse, dtype)
             print(json.dumps({"kernel": "flash_fwd", "case": case,
-                              "dtype": str(dtype), **r}))
-            if not r["ok"]:
-                fail(f"flash_fwd disagrees with its plain version: {case} "
-                     f"{dtype}")
+                              "dtype": str(dtype), "route": route,
+                              "bitwise_repeat": bitwise, **r}))
+            if want_fwd_route(case, dtype) not in (None, route):
+                fail(f"flash_fwd at a serving shape took the {route} "
+                     f"route: {case} {dtype}")
+            if not r["ok"] or not bitwise:
+                fail(f"flash_fwd disagrees with its plain version or gave "
+                     f"different bits on the same inputs: {case} {dtype}")
             if case in SERVE_CASES and dtype == torch.bfloat16:
                 slice_err = max(slice_err, r["max_abs_err_out"])
-    # a negative scale at the serving shape: the bf16 kernel runs it on a
+    print(json.dumps({"flash_fwd_cases_by_route": routes_seen}))
+    if set(routes_seen) != set(ROUTES):
+        fail(f"the forward cases did not reach every route: {routes_seen}")
+    # a negative scale at the serving shape: the bf16 kernels run it on a
     # negated q tile with |scale|
     case = KERNEL_CASES[-1]
     scale = -1.0 / math.sqrt(case[4])
     _, (q5, k4, v4) = make_qkv(case, torch.bfloat16, gen)
+    before = dict(fa.FWD_ROUTE_LAUNCHES)
     out, lse = fa.flash_fwd(q5, k4, v4, causal=True, scale=scale)
     torch.cuda.synchronize()
+    route = moved_route(fa.FWD_ROUTE_LAUNCHES, before, 1)
     ref_out, ref_lse = fa.flash_fwd_reference(
         q5.float(), k4.float(), v4.float(), causal=True, scale=scale)
     r = check_fwd(out, lse, ref_out, ref_lse, torch.bfloat16)
     print(json.dumps({"kernel": "flash_fwd", "case": case, "scale": scale,
-                      "dtype": str(torch.bfloat16), **r}))
-    if not r["ok"]:
-        fail(f"flash_fwd with a negative scale disagrees with its plain "
-             f"version: {case}")
+                      "dtype": str(torch.bfloat16), "route": route, **r}))
+    if route != "wgmma" or not r["ok"]:
+        fail(f"flash_fwd with a negative scale took the {route} route or "
+             f"disagrees with its plain version: {case}")
     return slice_err
 
 
@@ -591,7 +664,7 @@ def phase_bwd_kernels() -> tuple[float, float]:
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(13)
     fwd_err = bwd_err = 0.0
-    routes_seen = {}
+    routes_seen, fwd_routes_seen = {}, {}
     for case in BWD_CASES:
         mask = case_mask(case)
         for dtype in (torch.float32, torch.bfloat16):
@@ -601,8 +674,12 @@ def phase_bwd_kernels() -> tuple[float, float]:
             do5 = torch.randn(q.shape, generator=gen, device="cuda") \
                 .to(dtype).reshape(B, S, n_kv, Hq // n_kv, D) \
                 .permute(0, 2, 3, 1, 4)
+            before = dict(fa.FWD_ROUTE_LAUNCHES)
             out, lse = fa.flash_fwd(q5, k4, v4, **mask)
             torch.cuda.synchronize()
+            fwd_route = moved_route(fa.FWD_ROUTE_LAUNCHES, before, 1)
+            fwd_routes_seen[fwd_route] = \
+                fwd_routes_seen.get(fwd_route, 0) + 1
             ref_out, ref_lse = fa.flash_fwd_reference(
                 q5.float(), k4.float(), v4.float(), **mask)
             fwd = check_fwd(out, lse, ref_out, ref_lse, dtype)
@@ -612,8 +689,7 @@ def phase_bwd_kernels() -> tuple[float, float]:
             before = dict(fa.BWD_ROUTE_LAUNCHES)
             got = fa.flash_bwd(q5, k4, v4, do5, lse, delta, **mask)
             torch.cuda.synchronize()
-            route = next(r for r in before
-                         if fa.BWD_ROUTE_LAUNCHES[r] == before[r] + 2)
+            route = moved_route(fa.BWD_ROUTE_LAUNCHES, before, 2)
             routes_seen[route] = routes_seen.get(route, 0) + 1
             # the same inputs again: bitwise the same (one writer an output)
             again = fa.flash_bwd(q5, k4, v4, do5, lse, delta, **mask)
@@ -634,13 +710,17 @@ def phase_bwd_kernels() -> tuple[float, float]:
                     and block_errs[-1] <= BLOCK_REL_TOL[name]
             print(json.dumps({"kernel": "flash_fwd then flash_bwd",
                               "case": case, "dtype": str(dtype),
-                              "route": route, "bitwise_repeat": bitwise,
+                              "route": route, "fwd_route": fwd_route,
+                              "bitwise_repeat": bitwise,
                               "fwd": fwd, "max_abs_err_dq_dk_dv": errs,
                               "block_rel_err_dq_dk_dv": block_errs,
                               "ok": ok}))
             if not bitwise:
                 fail(f"flash_bwd gave different bits on the same inputs: "
                      f"{case} {dtype}")
+            if want_fwd_route(case, dtype) not in (None, fwd_route):
+                fail(f"flash_fwd at a serving or training shape took the "
+                     f"{fwd_route} route: {case} {dtype}")
             if case in TRAIN_CASES and route != {
                     torch.float32: "fp32", torch.bfloat16: "wgmma"}[dtype]:
                 fail(f"flash_bwd at a training shape took the {route} "
@@ -656,8 +736,12 @@ def phase_bwd_kernels() -> tuple[float, float]:
                 bwd_err = max(bwd_err, *errs)
             del got, want, lse, delta
     torch.cuda.empty_cache()
-    print(json.dumps({"flash_bwd_cases_by_route": routes_seen}))
-    if set(routes_seen) != {"wgmma", "mma", "fp32"}:
+    print(json.dumps({"flash_bwd_cases_by_route": routes_seen,
+                      "flash_fwd_cases_by_route": fwd_routes_seen}))
+    if set(fwd_routes_seen) != set(ROUTES):
+        fail(f"the forward cases did not reach every route: "
+             f"{fwd_routes_seen}")
+    if set(routes_seen) != set(ROUTES):
         fail(f"the backward cases did not reach every route: {routes_seen}")
     return fwd_err, bwd_err
 
@@ -845,7 +929,7 @@ def serve_main_path(cfg) -> tuple[dict, dict]:
     logits, cache = prefill(params, batch)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"prefill": _counters()}
+    launches, routes = {"prefill": _counters()}, {"prefill": _routes()}
     _zero_counters()
     tok0 = tok = _greedy(logits)
     generated = []
@@ -857,13 +941,16 @@ def serve_main_path(cfg) -> tuple[dict, dict]:
         generated.append(tok)
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3 / SLICE_DECODE_STEPS
-    launches["decode"] = _counters()
+    launches["decode"], routes["decode"] = _counters(), _routes()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     want = {part: {n: 0 for n in c} for part, c in launches.items()}
     want["prefill"]["flash_fwd"] = attn_layers(cfg)
     if launches != want:
         fail(f"{cfg.name} serving launches {launches}, want {want}")
+    for part in launches:
+        _hold_wgmma_route(f"{cfg.name} serving {part}", launches[part],
+                          routes[part])
     gen_tokens = torch.cat(generated, dim=1)
     if not (bool(torch.isfinite(logits).all())
             and bool(torch.isfinite(step_logits).all())
@@ -888,7 +975,7 @@ def serve_main_path(cfg) -> tuple[dict, dict]:
         "prefill_tokens_per_s": B * SLICE_PROMPT / (prefill_ms / 1e3),
         "decode_ms_per_step": decode_ms,
         "decode_tokens_per_s": B / (decode_ms / 1e3),
-        "peak_mem_gb": peak_gb, "launches": launches}
+        "peak_mem_gb": peak_gb, "launches": launches, "routes": routes}
 
 
 def hold(what: str, reading: float, limit: float) -> None:
@@ -1240,6 +1327,8 @@ def phase_serve_offload() -> dict:
     logits, cache = prefill(params, {"tokens": prompts})
     torch.cuda.synchronize()
     launches["prefill"] = _counters()
+    _hold_wgmma_route("offloaded session's prefill", launches["prefill"],
+                      _routes())
     tok0 = _greedy(logits)
     # decode writes a cache in place: the copy the restore is held against
     clone = {k: v.clone() for k, v in cache.items()}
@@ -1567,25 +1656,30 @@ def _zero_counters() -> None:
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import shard_pack as sp
     fa.LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
-    for route in fa.BWD_ROUTE_LAUNCHES:
-        fa.BWD_ROUTE_LAUNCHES[route] = 0
+    for route in ROUTES:
+        fa.FWD_ROUTE_LAUNCHES[route] = fa.BWD_ROUTE_LAUNCHES[route] = 0
     qz.QUANT_LAUNCHES = qz.DEQUANT_LAUNCHES = 0
     ck.CHECKSUM_LAUNCHES = sp.PACK_LAUNCHES = sp.UNPACK_LAUNCHES = 0
 
 
 def _routes() -> dict:
-    """The backward's passes by route since the counters were set to 0."""
+    """The forward's launches and the backward's passes by route since the
+    counters were set to 0."""
     from repro_torch.kernels import flash_attention as fa
-    return dict(fa.BWD_ROUTE_LAUNCHES)
+    return {"fwd": dict(fa.FWD_ROUTE_LAUNCHES),
+            "bwd": dict(fa.BWD_ROUTE_LAUNCHES)}
 
 
 def _hold_wgmma_route(what: str, launches: dict, routes: dict) -> None:
-    """Every backward pass counted in ``launches`` (dq and dk/dv) took the
-    wgmma route, by the route counters read with them."""
-    want = {"wgmma": launches["flash_bwd_dq"] + launches["flash_bwd_dkv"],
-            "mma": 0, "fp32": 0}
+    """Every forward launch and every backward pass (dq and dk/dv) counted
+    in ``launches`` took the wgmma route, by the route counters read with
+    them."""
+    on_wgmma = lambda n: {"wgmma": n, "mma": 0, "fp32": 0}
+    want = {"fwd": on_wgmma(launches["flash_fwd"]),
+            "bwd": on_wgmma(launches["flash_bwd_dq"]
+                            + launches["flash_bwd_dkv"])}
     if routes != want:
-        fail(f"{what}: backward passes by route {routes}, want {want}")
+        fail(f"{what}: launches by route {routes}, want {want}")
 
 
 def _rss_gb() -> float:
@@ -1973,19 +2067,30 @@ def run_train(cfg, fp32_leaves: bool = False) -> dict:
     norms = [float(x) for x in norms]
     auxes = [float(x) for x in auxes]
     after = float(make_eval_step(cfg, device="cuda")(params, batch))
-    # the same steps with the backward on the mma route's kernels, on the
-    # same card (after the checks; the params go on training)
+    # the same steps with the backward, then the forward, on the mma
+    # route's kernels, on the same card (after the checks; the params go
+    # on training)
     from repro_torch.kernels import flash_attention as fa
-    mma_step_ms = None
-    if n_attn:
-        with forced_route(fa, "mma"):
+    mma_step_ms = {}
+    for which in ("bwd", "fwd") if n_attn else ():
+        with forced_route(fa, "mma", which):
             params, state, _ = step(params, state, batch)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(TRAIN_TIMED_STEPS):
                 params, state, _ = step(params, state, batch)
             torch.cuda.synchronize()
-        mma_step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED_STEPS
+        mma_step_ms[which] = (time.perf_counter() - t0) * 1e3 \
+            / TRAIN_TIMED_STEPS
+    # the kernel path again, after the forced runs: the drift between
+    # the first and last readings bounds what the comparison can show
+    step_ms_again = None
+    if n_attn:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_TIMED_STEPS):
+            params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        step_ms_again = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED_STEPS
 
     L = cfg.n_layers
     n = TRAIN_TIMED_STEPS
@@ -2015,11 +2120,14 @@ def run_train(cfg, fp32_leaves: bool = False) -> dict:
             "timed_steps": n, "first_loss": first_loss,
             "step_losses": losses, "grad_norms": norms, "aux_losses": auxes,
             "loss_after": after, "step_ms": step_ms,
-            "step_ms_mma_bwd": mma_step_ms,
+            "step_ms_mma_bwd": mma_step_ms.get("bwd"),
+            "step_ms_mma_fwd": mma_step_ms.get("fwd"),
+            "step_ms_again": step_ms_again,
             "tokens_per_s": B * S / (step_ms / 1e3), "peak_mem_gb": peak_gb,
             "resident_gb": resident_gb, "model_flops_per_step": flops,
             "mfu": flops / (step_ms / 1e3) / BF16_FLOP_PER_S,
-            "launches": launches, "bwd_routes": routes,
+            "launches": launches, "fwd_routes": routes["fwd"],
+            "bwd_routes": routes["bwd"],
             "compressed_leaves": n_big,
             "kernel_vs_plain": {
                 name: {"loss_rel": c["loss_rel"],
@@ -2164,6 +2272,7 @@ def dryrun_prefill_on_card() -> dict:
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     launches = _counters()
+    _hold_wgmma_route("dry-run prefill", launches, _routes())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {n: 0 for n in launches}
     want["flash_fwd"] = attn_layers(cfg)
@@ -2330,10 +2439,24 @@ def attn_times(case, iters: int, plain_iters: int, bwd: bool) -> dict:
         sdpa_kw["attn_mask"] = allow
     else:
         sdpa_kw["is_causal"] = mask["causal"]
-    r = {"ms": cuda_ms(lambda: fa.flash_fwd(q5, k4, v4, **mask),
-                       iters=iters),
-         "plain_ms": cuda_ms(lambda: fa.flash_fwd_reference(
-             q5, k4, v4, **mask), iters=plain_iters)}
+    fwd = lambda: fa.flash_fwd(q5, k4, v4, **mask)
+    before = dict(fa.FWD_ROUTE_LAUNCHES)
+    fwd()
+    r = {"fwd_route": moved_route(fa.FWD_ROUTE_LAUNCHES, before, 1),
+         "ms": cuda_ms(fwd, iters=iters)}
+    # the kernel's own device time (the profiler's): at the smallest
+    # shapes the wrapper's host time exceeds the kernel's, and the events
+    # around back-to-back calls then read the host
+    name = (WGMMA_KERNELS if r["fwd_route"] == "wgmma"
+            else TC_KERNELS)["flash_fwd"][0]
+    r["device_ms"] = _profiled_ms(fwd, (name,))[name]
+    # the mma route's kernel (mma.sync) on the same inputs and card
+    with forced_route(fa, "mma", "fwd"):
+        r["mma_ms"] = cuda_ms(fwd, iters=iters)
+        name = TC_KERNELS["flash_fwd"][0]
+        r["mma_device_ms"] = _profiled_ms(fwd, (name,))[name]
+    r["plain_ms"] = cuda_ms(lambda: fa.flash_fwd_reference(
+        q5, k4, v4, **mask), iters=plain_iters)
     with torch.no_grad():
         sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, **sdpa_kw)
         r["library_ms"] = cuda_ms(sdpa, iters=iters)
@@ -2362,7 +2485,7 @@ def attn_times(case, iters: int, plain_iters: int, bwd: bool) -> dict:
              else TC_KERNELS)["flash_bwd"]
     per = _profiled_ms(pair, names, optional=(REDUCE_KERNEL,))
     # the mma route's kernels (mma.sync) on the same inputs and card
-    with forced_route(fa, "mma"):
+    with forced_route(fa, "mma", "bwd"):
         r["mma_pair_ms"] = cuda_ms(pair, iters=5)
         mma = _profiled_ms(pair, TC_KERNELS["flash_bwd"])
     r["mma_dq_ms"], r["mma_dkv_ms"] = (mma[k] for k in
@@ -2495,20 +2618,24 @@ def phase_storage_kernel_times(tree: dict) -> dict:
     return {"checksum": csum, "shard_pack": pack, "shard_unpack": unpack}
 
 
-def forced_route(fa, route: str):
-    """A context in which ``flash_bwd`` takes ``route`` whatever its inputs
-    (``_bwd_route`` replaced), to time one design against another on the
+def forced_route(fa, route: str, *passes: str):
+    """A context in which the named passes ("fwd": ``flash_fwd``, "bwd":
+    ``flash_bwd``) take ``route`` whatever their inputs (``_fwd_route``,
+    ``_bwd_route`` replaced), to time one design against another on the
     same inputs; for measurement only."""
     import contextlib
+    names = [{"fwd": "_fwd_route", "bwd": "_bwd_route"}[p] for p in passes]
 
     @contextlib.contextmanager
     def ctx():
-        real = fa._bwd_route
-        fa._bwd_route = lambda *a: route
+        real = {n: getattr(fa, n) for n in names}
+        for n in names:
+            setattr(fa, n, lambda *a: route)
         try:
             yield
         finally:
-            fa._bwd_route = real
+            for n, fn in real.items():
+                setattr(fa, n, fn)
     return ctx()
 
 
@@ -2604,6 +2731,10 @@ def phase_train_kernel_times() -> dict:
         t["bound_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
         t["bound_by"] = "bytes"
     return {"flash_fwd_train_shape_ms": at["ms"],
+            "flash_fwd_train_shape_mma_ms": at["mma_ms"],
+            "flash_fwd_train_shape_device_ms": at["device_ms"],
+            "flash_fwd_train_shape_mma_device_ms": at["mma_device_ms"],
+            "flash_fwd_train_shape_route": at["fwd_route"],
             "flash_fwd_train_shape_tflops_per_s": at["tflops_per_s"],
             "flash_fwd_train_shape_bound_ms": at["bound_ms"],
             "flash_fwd_train_shape_bound_by": at["bound_by"],
@@ -2713,7 +2844,16 @@ def main() -> int:
           for k in train_run["launches"]}
     # the backward passes of the training runs by route (all wgmma)
     routes = {k: sum(r["bwd_routes"][k] for r in train_runs)
-              for k in train_run["bwd_routes"]}
+              for k in ROUTES}
+    # the forward launches of the serving and training runs by route (all
+    # wgmma)
+    serve_routes = [part for run in (slice_run, moe_serve_run,
+                                     hybrid_serve_run, encdec_serve_run,
+                                     vlm_serve_run)
+                    for part in run["routes"].values()]
+    fwd_routes = {k: sum(r["fwd_routes"][k] for r in train_runs)
+                  + sum(part["fwd"][k] for part in serve_routes)
+                  for k in ROUTES}
     bwd_extra = {"route_launches": routes,
                  "map_build_host_us": tt["flash_bwd_map_build_host_us"],
                  "mma_route_pair_ms": tt["flash_bwd_mma_pair_ms"]}
@@ -2740,12 +2880,20 @@ def main() -> int:
         "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"], "library_ms": times["library_ms"],
         "tflops_per_s": times["tflops_per_s"],
+        "route_launches": fwd_routes, "mma_route_ms": times["mma_ms"],
+        "device_ms": times["device_ms"],
+        "mma_route_device_ms": times["mma_device_ms"],
+        "device_ms_train_shape": tt["flash_fwd_train_shape_device_ms"],
+        "mma_route_device_ms_train_shape":
+            tt["flash_fwd_train_shape_mma_device_ms"],
         "ms_train_shape": tt["flash_fwd_train_shape_ms"],
+        "mma_route_ms_train_shape": tt["flash_fwd_train_shape_mma_ms"],
         "tflops_per_s_train_shape": tt["flash_fwd_train_shape_tflops_per_s"],
         "bound_ms_train_shape": tt["flash_fwd_train_shape_bound_ms"],
         "library_ms_train_shape": tt["sdpa_fwd_train_shape_ms"],
         **g16("ms"), **g16("bound_ms"), **g16("plain_ms"),
-        **g16("library_ms"), **g16("tflops_per_s")}, {
+        **g16("library_ms"), **g16("tflops_per_s"), **g16("mma_ms"),
+        **g16("device_ms"), **g16("mma_device_ms"), **g16("fwd_route")}, {
         "name": "flash_bwd_dq", "route": "cuda", "source": csrc + "flash_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:222",
         "launches": tl["flash_bwd_dq"], "max_abs_err": bwd_err,

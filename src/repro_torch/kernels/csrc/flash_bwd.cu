@@ -853,53 +853,6 @@ struct Role {
   static constexpr int value = R;
 };
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = smem_addr(p);
-  return p + (((a + 1023) & ~1023u) - a);
-}
-
-// True when some (qi, ki) in [qlo, qhi] x [klo, khi] lies in range and is
-// allowed: tiles for which it is false are skipped.
-__device__ __forceinline__ bool tile_live(const Params& p, int qlo, int qhi,
-                                          int klo, int khi) {
-  qhi = min(qhi, p.S - 1);
-  khi = min(khi, p.Sk - 1);
-  if (qlo > qhi || klo > khi) return false;
-  if (p.prefix && klo < p.prefix) return true;
-  bool live = true;
-  if (p.causal) live = qhi >= klo;
-  if (p.window) live = live && (qlo - khi) < p.window;
-  return live;
-}
-
-// K-major descriptor of 16-deep step ks of a 64-row slice of a tile of
-// `rows` rows (step ks lies in column block ks / 4).
-__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows, int ks) {
-  return sw128_desc(tile + (ks >> 2) * rows * 128 + (ks & 3) * 32, 16, 1024);
-}
-
-// MN-major descriptor of rows [16 t, 16 t + 16) of a tile of `rows` rows,
-// all its column blocks.
-__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows, int t) {
-  return sw128_desc(tile + t * 16 * 128, rows * 128, 1024);
-}
-
-// 64 x (8 NO) fp32 accumulators of rows r0 + 16 w + lane / 4 (+ 8) into a
-// bf16 output with row stride rs, rows past n dropped.
-template <int NO>
-__device__ __forceinline__ void store_bf16(const float (&acc)[NO][4], bf16* out,
-                                           int64_t rs, int r, int n, int t4) {
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int ri = r + 8 * h;
-      if (ri < n)
-        *reinterpret_cast<__nv_bfloat162*>(out + ri * rs + 8 * j + 2 * t4) =
-            __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
-    }
-}
-
 // The same rows as fp32 partials, rows of 8 NO values.
 template <int NO>
 __device__ __forceinline__ void store_f32(const float (&acc)[NO][4],
@@ -1385,16 +1338,14 @@ __global__ void __launch_bounds__(256)
 // 4-D (D, Sk, H, B), boxes of 64 columns x the pass's rows.
 bool make_maps(WgParams& a, int q_rows, int kv_rows) {
   const Params& p = a.p;
-  const int64_t qd[5] = {p.D, p.S, p.G, p.H, p.B};
-  const int64_t qs[5] = {1, p.q_ss, p.q_sg, p.q_sh, p.q_sb};
-  const int64_t ds[5] = {1, p.do_ss, p.do_sg, p.do_sh, p.do_sb};
-  const int64_t kd[4] = {p.D, p.Sk, p.H, p.B};
-  const int64_t ks[4] = {1, p.k_ss, p.k_sh, p.k_sb};
-  const int64_t vs[4] = {1, p.v_ss, p.v_sh, p.v_sb};
-  return bf16_map(&a.tq, p.q, 5, qd, qs, q_rows) &&
-         bf16_map(&a.tdo, p.dout, 5, qd, ds, q_rows) &&
-         bf16_map(&a.tk, p.k, 4, kd, ks, kv_rows) &&
-         bf16_map(&a.tv, p.v, 4, kd, vs, kv_rows);
+  return map_5d(&a.tq, p.q, p.B, p.H, p.G, p.S, p.D, p.q_sb, p.q_sh, p.q_sg,
+                p.q_ss, q_rows) &&
+         map_5d(&a.tdo, p.dout, p.B, p.H, p.G, p.S, p.D, p.do_sb, p.do_sh,
+                p.do_sg, p.do_ss, q_rows) &&
+         map_4d(&a.tk, p.k, p.B, p.H, p.Sk, p.D, p.k_sb, p.k_sh, p.k_ss,
+                kv_rows) &&
+         map_4d(&a.tv, p.v, p.B, p.H, p.Sk, p.D, p.v_sb, p.v_sh, p.v_ss,
+                kv_rows);
 }
 
 template <typename Kernel>

@@ -14,27 +14,54 @@
 // byte, far above the H100's bf16 ridge of ~295, so the kernel is bound by
 // operations, and only the tensor cores (989 TFLOP/s bf16, dense) come
 // near the bound.  At the serving shape (B=4, S=1024) it is ~256 FLOP a
-// byte, about at the ridge: there the bytes bound it, barely.
+// byte, about at the ridge: there the bytes bound it, barely.  Besides the
+// products, each score costs an exp2 on the 16-a-clock MUFU unit: half the
+// products' time at D = 128, so the softmax must run beside the products.
 //
-// bf16 inputs (dtype 1, serving and training): flash_fwd_tc_kernel.
+// Three routes, which the caller chooses (see the C interface at the end).
+//
+// The wgmma route (flash_fwd_wg_kernel; bf16, D in {64, 128, 256}, every
+// operand 16-byte aligned: every model's serving and training shape),
+// designed for Hopper's tensor cores and copy engine:
+//   * Three warpgroups, 128 q rows a block: two consumers of 64 rows each
+//     that run both products on wgmma, and a producer whose first thread
+//     loads the q tile once and keeps a ring of 2 stages of k/v tiles in
+//     flight by TMA, with full and empty mbarriers for k and for v apart,
+//     so that a stage's k is refilled while its v is still read.  It gives
+//     its registers to the consumers (setmaxnreg 24 / 240).
+//   * Loads by TMA from a 5-D map over q (D, S, G, H, B) and 4-D maps over
+//     k and v (D, Sk, H, B), built on the host at every call over the
+//     wrapper's strided views: boxes of 64 columns, 128-byte swizzle, rows
+//     past S or Sk filled with zeros.
+//   * Products: s = q.k^T with both operands read from shared memory along
+//     D (K-major); o += p.v with p from registers (the m16n8 accumulators
+//     of two adjacent n8 score tiles are the m16k16 A fragment) and v read
+//     across its rows (wgmma's transpose flag).  All of D in one block:
+//     at D = 256 a consumer thread holds 128 fp32 O accumulators, so its
+//     k/v tiles are 64 rows (128 at D = 64 and 128), which keeps O, s and
+//     p in the 240 registers without a spill.
+//   * Overlap, both of FA3's: each consumer issues tile i's q.k^T and tile
+//     i - 1's p.v together and computes tile i's softmax while p.v runs
+//     (o is rescaled by alpha only after that p.v is waited for); and the
+//     two consumers take turns to issue (named barriers), each computing
+//     its softmax while the other's products run.  The turns need both to
+//     walk every tile of the block: the tiles hidden from one consumer's
+//     rows run masked, which changes no value (see the kernel).
+//   * Block order: heads in groups of 8, and in a group the q tiles
+//     reversed, heads fastest: the blocks in flight share a few heads' k/v
+//     in L2, and each group's longest causal tiles start first.
+//   * No trap in the consumers' code (ptxas would compile it to the
+//     block's entry register count and spill); only the producer's waits
+//     carry a watchdog.
+//
+// The mma route (flash_fwd_tc_kernel: bf16 with other D, or views that are
+// not 16-byte aligned):
 //   * Both products run on the tensor cores as
 //     mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 with fp32 accumulators:
 //     S = Q.K^T with k as stored ([n][k], plain ldmatrix), O += P.V with v
 //     read across its rows (ldmatrix .trans).  Each warp owns 32 q rows, two
 //     m16 tiles, so that every k and v fragment it loads feeds both; their
 //     Q fragments come from the q tile, resident in shared memory.
-//   * P stays in registers: the m16n8 accumulators of two adjacent n8 score
-//     tiles are exactly the m16k16 A fragment of P.V, so p is rounded to
-//     bf16 once, as that operand, and never touches shared memory.  The
-//     row max reduces over the 4 lanes that share a row (two shuffles); the
-//     row sum l is kept per lane, from the fp32 p before rounding, and
-//     reduced once at the end; alpha = 2^(m_old - m_new) rescales the O
-//     accumulators once a tile.  p is one FFMA and one MUFU.EX2 in log2
-//     units (the -1e30 sentinel becomes NEG2); lse is converted back to
-//     natural log when stored.
-//   * Rounding: s is an fp32 sum of exact products of bf16 inputs, p is
-//     fp32 until it is rounded to bf16 for P.V, O is summed in fp32 and
-//     rounded to bf16 once, when stored.
 //   * k/v tiles of BS rows are staged as bf16 in a 2-stage ring of 16-byte
 //     cp.async.cg copies: the next tile loads while the current one
 //     multiplies, one barrier an iteration, copy addresses computed once a
@@ -44,26 +71,34 @@
 //     zero, so D = 40, 80, ... take whole k-steps of 16.  A pointer or
 //     stride that is not 16-byte aligned, or D not a multiple of 8, takes
 //     plain 2-byte loads into the same layout.
+//   * 4 warps, 128 q rows a block, 2 blocks an SM at D = 128 (255
+//     registers, 102 KB of shared memory each).  The grid runs batch x
+//     head fastest and the q tiles in reverse.  D > 128 splits the output
+//     columns over blockIdx.z in blocks of 128, each recomputing the
+//     scores, so that the O accumulators fit.  kv tiles that the causal or
+//     window mask hides from the whole q tile are skipped, and a warp skips
+//     the tiles that the causal mask hides from its 32 rows (a tile that
+//     `prefix` opens never is).
+//
+// Both bf16 routes share the arithmetic:
+//   * P stays in registers, rounded to bf16 once, as the A operand of P.V.
+//     The row max reduces over the 4 lanes that share a row (two
+//     shuffles); the row sum l is kept per lane, from the fp32 p before
+//     rounding, and reduced once at the end; alpha = 2^(m_old - m_new)
+//     rescales the O accumulators once a tile.  p is one FFMA and one
+//     MUFU.EX2 in log2 units (the -1e30 sentinel becomes NEG2); lse is
+//     converted back to natural log when stored.
+//   * Rounding: s is an fp32 sum of exact products of bf16 inputs, p is
+//     fp32 until it is rounded to bf16 for P.V, O is summed in fp32 and
+//     rounded to bf16 once, when stored.
 //   * The mask is applied per element only in the 16-row patches that a
 //     causal / window / prefix boundary or the ragged edge at Sk crosses.
-//     kv tiles that the causal or window mask hides from the whole q tile
-//     are skipped, and a warp skips the tiles that the causal mask hides
-//     from its 32 rows (a tile that `prefix` opens never is).  A row whose
-//     first visited tile is wholly masked accumulates values computed
-//     against the sentinel max, which the next tile's alpha = 2^(NEG2 - m)
-//     = 0 wipes out; columns past Sk are -inf and never count.  D == 128
-//     has its own instance with no column guards.
-//   * 4 warps, 128 q rows a block: each k/v tile read from L2 serves twice
-//     as many rows as 64-row blocks would.  At D = 128 a thread holds 128
-//     fp32 O accumulators and 64 score accumulators in 255 registers, 2
-//     blocks an SM (102 KB of shared memory each).  The grid runs batch x
-//     head fastest and the q tiles in reverse, so every head's longest
-//     causal tiles start first and the tail of the grid is short.  D > 128
-//     splits the output columns over blockIdx.z in blocks of 128, each
-//     recomputing the scores, so that the O accumulators fit.
-//   * mma.sync reaches only part of the card's tensor-core rate (PERF.md
-//     has the measured share); wgmma with TMA loads and warp
-//     specialisation are the next step.
+//     A row whose first visited tile is wholly masked accumulates values
+//     computed against the sentinel max, which the next tile's alpha =
+//     2^(NEG2 - m) = 0 wipes out; columns past Sk are -inf and never count.
+//   * A negative scale runs as (-q).k.|scale|: the q tile is negated in
+//     shared memory (exact in bf16), since the row max is taken over
+//     unscaled scores and needs a positive scale.
 //
 // fp32 inputs (dtype 0, used by tests on the card) keep the first design,
 // scalar FMA on the CUDA cores with fp32 tiles in shared memory
@@ -80,6 +115,7 @@
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -544,6 +580,340 @@ cudaError_t launch_tc_for_d(const Params& p, cudaStream_t stream) {
   return launch_tc<4, 256, 128, 32, false>(p, stream);
 }
 
+// ------------------------------------------ bf16: wgmma + TMA route (_wg)
+// Three warpgroups a block: two consumers of 64 q rows each (128 q rows a
+// block) that run both products on wgmma, and a producer whose first
+// thread loads the q tile once and keeps a ring of WG_STAGES k/v tiles in
+// flight by TMA, and which gives its registers to the consumers
+// (setmaxnreg 24 / 240).
+constexpr int WG_THREADS = 384;
+constexpr int WG_STAGES = 2;  // a third stage gained nothing (PERF.md)
+constexpr int WG_QROWS = 128;
+constexpr int WG_CONSUMER_WARPS = 8;
+
+struct WgParams {
+  CUtensorMap tq, tk, tv;
+  Params p;
+};
+
+// The online softmax of one 16 x (8 NT) patch of scores (this warp's rows
+// qm .. qm + 15, keys k0 ..): s (fp32 q.k sums) becomes p = 2^(s c2 - m)
+// in fp32, m (log2 units) and this lane's part of the row sum l move on,
+// and alpha = 2^(m_old - m_new) is what the O accumulators must be scaled
+// by.  The per-element mask only where the patch needs it; there s becomes
+// s c2 or the sentinel, columns past Sk -inf.  c2 > 0.
+template <int NT>
+__device__ __forceinline__ void softmax_patch(const Params& p,
+                                              float (&s)[NT][4],
+                                              float (&m2)[2], float (&l)[2],
+                                              float (&alpha)[2], int qm,
+                                              int k0, int g8, int t4,
+                                              float c2) {
+  const bool open = all_open(p, qm, qm + 15, k0, k0 + 8 * NT - 1);
+  const float a = open ? c2 : 1.f;
+  if (!open) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = qm + g8 + (e >> 1) * 8;
+        const int ki = k0 + 8 * j + 2 * t4 + (e & 1);
+        s[j][e] = ki >= p.Sk ? -INFINITY
+                  : allowed(p, qi, ki) ? s[j][e] * c2 : NEG2;
+      }
+  }
+  float mx[2] = {NEG2, NEG2};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m2[r], mx[r] * a);
+    alpha[r] = exp2_approx(m2[r] - m_new);
+    m2[r] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pv = exp2_approx(fmaf(s[j][e], a, -m2[e >> 1]));
+      s[j][e] = pv;
+      rs[e >> 1] += pv;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+}
+
+// Heads (batch x kv head x group) a group of the block order.
+constexpr int WG_HEAD_GROUP = 8;
+
+// D: head dim (64, 128, 256); BK: k/v rows a tile.  One block: 128 q rows
+// of one (batch, kv head, group).
+template <int D, int BK>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_fwd_wg_kernel(const __grid_constant__ WgParams a) {
+  constexpr int QROWS = WG_QROWS, STAGES = WG_STAGES, NT = BK / 8,
+                NO = D / 8;
+  constexpr uint32_t KV_BYTES = BK * D * 2;
+  const Params& p = a.p;
+  extern __shared__ unsigned char wg_smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(align1024(wg_smem));  // D/64 x 128 x 64
+  bf16* sK = sQ + QROWS * D;                  // STAGES x D/64 x BK x 64
+  bf16* sV = sK + STAGES * BK * D;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sV + STAGES * BK * D);
+  uint64_t* kfull = qbar + 1;   // k and v have their own barriers, so that
+  uint64_t* vfull = kfull + STAGES;  // a stage's k is refilled while its v
+  uint64_t* kempty = vfull + STAGES;  // is still read
+  uint64_t* vempty = kempty + STAGES;
+
+  // Block order: heads in groups of WG_HEAD_GROUP, and in a group the q
+  // tiles reversed, heads fastest.  The blocks in flight then read the k/v
+  // of a few heads, which stay in L2, and the longest causal tiles of each
+  // group start first.
+  const int n_tiles = (p.S + QROWS - 1) / QROWS;
+  const int n_heads = p.B * p.H * p.G;
+  const int group = blockIdx.x / (WG_HEAD_GROUP * n_tiles);
+  const int in_group = blockIdx.x - group * WG_HEAD_GROUP * n_tiles;
+  const int heads = min(WG_HEAD_GROUP, n_heads - group * WG_HEAD_GROUP);
+  const int q0 = (n_tiles - 1 - in_group / heads) * QROWS;
+  const int bh = group * WG_HEAD_GROUP + in_group % heads;
+  const int g = bh % p.G, h = (bh / p.G) % p.H, b = bh / (p.G * p.H);
+  // kv range this q tile can see; wholly masked tiles are not loaded
+  int hi = p.Sk;
+  if (p.causal) hi = min(p.Sk, max(q0 + QROWS, p.prefix));
+  int lo = 0;
+  if (p.window > 0 && p.prefix == 0) lo = max(0, q0 - p.window + 1);
+  lo = (lo / BK) * BK;
+  const int n_kv = hi > lo ? (hi - lo + BK - 1) / BK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(kfull + st, 1);
+      mbar_init(vfull + st, 1);
+      mbar_init(kempty + st, WG_CONSUMER_WARPS);
+      mbar_init(vempty + st, WG_CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // warpgroup index, uniform across each warp
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {  // producer
+    regs_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qbar, QROWS * D * 2);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        tma_load_5d(sQ + c * QROWS * 64, &a.tq, qbar, 64 * c, q0, g, h, b);
+      for (int it = 0; it < n_kv; ++it) {
+        const int st = it % STAGES, round = it / STAGES;
+        const int k0 = lo + it * BK;
+        if (round > 0) mbar_wait_or_trap(kempty + st, (round - 1) & 1);
+        mbar_expect_tx(kfull + st, KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(sK + (st * D + 64 * c) * BK, &a.tk, kfull + st, 64 * c,
+                      k0, h, b);
+        if (round > 0) mbar_wait_or_trap(vempty + st, (round - 1) & 1);
+        mbar_expect_tx(vfull + st, KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(sV + (st * D + 64 * c) * BK, &a.tv, vfull + st, 64 * c,
+                      k0, h, b);
+      }
+    }
+    return;
+  }
+
+  regs_inc<240>();
+  const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int q0w = q0 + 64 * wg;
+  const int qm = q0w + 16 * w;       // this warp's 16 rows
+  const int qr = qm + g8;            // this thread's rows: qr and qr + 8
+  const float c2 = p.scale * LOG2E;
+  float o[NO][4], m2[2] = {NEG2, NEG2}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  const uint32_t aQ = smem_addr(sQ) + wg * 64 * 128;
+  auto phase = [](int it) { return static_cast<uint32_t>(it / STAGES) & 1; };
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  // The two consumers take turns to issue their products: warpgroup wg
+  // issues after a sync on its named barrier and hands the turn over with
+  // an arrival on the other's, so that each computes its softmax while the
+  // other's products run.  Warpgroup 0 goes first.
+  auto my_turn = [&]() { named_sync(3 + wg, 256); };
+  auto your_turn = [&]() { named_arrive(4 - wg, 256); };
+  // s = q.k^T over this warpgroup's 64 rows, k read along D (K-major)
+  auto qk = [&](float (&s)[NT][4], int it) {
+    const uint32_t tK = smem_addr(sK + (it % STAGES) * BK * D);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      WgmmaSS<BK>::run(s, kmajor(aQ, QROWS, ks), kmajor(tK, BK, ks), ks);
+  };
+  // o += p.v, p from registers, v read across its rows (MN-major)
+  auto pv = [&](uint32_t (&ap)[NT / 2][4], int it) {
+    const uint32_t tV = smem_addr(sV + (it % STAGES) * BK * D);
+#pragma unroll
+    for (int kt = 0; kt < BK / 16; ++kt)
+      WgmmaRS<D>::run(o, ap[kt], mnmajor(tV, BK, kt), 1);
+  };
+  auto rescale = [&](const float (&alpha)[2]) {
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+  };
+
+  mbar_wait(qbar, 0);
+  if (p.negq) {
+    // A negative scale runs as (-q).k.|scale| = q.k.scale: the row max is
+    // taken over unscaled scores and needs a positive scale.  bf16
+    // negation is exact.  Each warpgroup flips its own 64 rows; wgmma
+    // reads them through the async proxy, hence the proxy fence.
+    uint4* q4 = reinterpret_cast<uint4*>(sQ);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+#pragma unroll
+      for (int i = t; i < 64 * 8; i += 128) {
+        uint4& x = q4[(c * QROWS + wg * 64) * 8 + i];
+        x.x ^= 0x80008000u;
+        x.y ^= 0x80008000u;
+        x.z ^= 0x80008000u;
+        x.w ^= 0x80008000u;
+      }
+    fence_proxy_async();
+    named_sync(1 + wg, 128);
+  }
+
+  // Both warpgroups walk every tile of the block, as the turns need: a
+  // tile that the mask hides from a warpgroup's 64 rows runs masked.  Past
+  // its last live tile a row's p is exactly 0 there; before its first, the
+  // values it sums against the sentinel max are wiped by the next tile's
+  // alpha = 2^(NEG2 - m) = 0; and a tile between them (only where a window
+  // and a prefix leave a gap) comes after the row's prefix keys, so its p
+  // is 0.  Tile 0 alone; then each step issues q.k^T of tile it and p.v of
+  // tile it - 1, and computes tile it's softmax while p.v runs: o may be
+  // rescaled only once p.v is done.
+  if (wg == 1) your_turn();
+  if (n_kv > 0) {
+    uint32_t ap[NT / 2][4];
+    {
+      float s[NT][4], alpha[2];
+      mbar_wait(kfull, 0);
+      my_turn();
+      wg_fence();
+      qk(s, 0);
+      wg_commit();
+      your_turn();
+      wg_wait<0>();
+      fence_acc(s);
+      release(kempty);
+      softmax_patch<NT>(p, s, m2, l, alpha, qm, lo, g8, t4, c2);
+      to_a_frags<NT>(s, ap);  // o is 0: nothing to rescale
+    }
+    for (int it = 1; it < n_kv; ++it) {
+      float s[NT][4], alpha[2];
+      mbar_wait(kfull + it % STAGES, phase(it));
+      mbar_wait(vfull + (it - 1) % STAGES, phase(it - 1));
+      my_turn();
+      wg_fence();
+      qk(s, it);
+      wg_commit();
+      fence_acc(o);
+      pv(ap, it - 1);
+      wg_commit();
+      your_turn();
+      wg_wait<1>();
+      fence_acc(s);
+      release(kempty + it % STAGES);
+      softmax_patch<NT>(p, s, m2, l, alpha, qm, lo + it * BK, g8, t4, c2);
+      wg_wait<0>();
+      fence_acc(o);
+      fence_frag(ap);
+      release(vempty + (it - 1) % STAGES);
+      rescale(alpha);
+      to_a_frags<NT>(s, ap);
+    }
+    const int last = n_kv - 1;
+    mbar_wait(vfull + last % STAGES, phase(last));
+    my_turn();
+    wg_fence();
+    fence_acc(o);
+    pv(ap, last);
+    wg_commit();
+    your_turn();
+    wg_wait<0>();
+    fence_acc(o);
+    fence_frag(ap);
+    release(vempty + last % STAGES);
+  }
+  if (wg == 0) my_turn();  // warpgroup 1's last hand-over
+
+  // out = o / l, rounded to bf16 once; lse = m ln 2 + log(max(l, 1e-30))
+  bf16* op = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh + g * p.o_sg;
+  float* lp = p.lse + (static_cast<int64_t>(b * p.H + h) * p.G + g) * p.S;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const float lc = fmaxf(lr, 1e-30f);
+    inv[r] = __fdividef(1.f, lc);
+    const int qi = qr + 8 * r;
+    if (t4 == 0 && qi < p.S) lp[qi] = m2[r] * LN2 + __logf(lc);
+  }
+  rescale(inv);
+  store_bf16<NO>(o, op, p.o_ss, qr, p.S, t4);
+}
+
+template <int D, int BK>
+cudaError_t launch_wg(WgParams& a, cudaStream_t stream) {
+  const Params& p = a.p;
+  if (!map_5d(&a.tq, p.q, p.B, p.H, p.G, p.S, D, p.q_sb, p.q_sh, p.q_sg,
+              p.q_ss, WG_QROWS) ||
+      !map_4d(&a.tk, p.k, p.B, p.H, p.Sk, D, p.k_sb, p.k_sh, p.k_ss, BK) ||
+      !map_4d(&a.tv, p.v, p.B, p.H, p.Sk, D, p.v_sb, p.v_sh, p.v_ss, BK))
+    return cudaErrorInvalidValue;
+  // 1024 bytes of alignment slack, the q tile, the ring, the barriers
+  const size_t smem =
+      1024 + static_cast<size_t>(WG_QROWS + 2 * WG_STAGES * BK) * D * 2 +
+      (1 + 4 * WG_STAGES) * 8;
+  auto kernel = flash_fwd_wg_kernel<D, BK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  // one block a q tile of a head: fewer than 2^31 (wg_route_ok)
+  const unsigned blocks = static_cast<unsigned>(
+      static_cast<int64_t>(p.S + WG_QROWS - 1) / WG_QROWS * p.B * p.H * p.G);
+  kernel<<<blocks, WG_THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The tile sizes of each D.
+cudaError_t launch_wg_for_d(WgParams& a, cudaStream_t stream) {
+  switch (a.p.D) {
+    case 64: return launch_wg<64, 128>(a, stream);
+    case 128: return launch_wg<128, 128>(a, stream);
+    case 256: return launch_wg<256, 64>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <int NC>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const size_t smem =
@@ -564,17 +934,30 @@ cudaError_t launch_for_d(const Params& p, cudaStream_t stream) {
   return launch<16>(p, stream);
 }
 
+// The wgmma route's conditions (the wrapper's _fwd_route decides the same
+// from the shape): D in {64, 128, 256}, every operand pointer and stride
+// 16-byte aligned (TMA), the B H G S rows of lse within an int32.
+bool wg_route_ok(const Params& p) {
+  return (p.D == 64 || p.D == 128 || p.D == 256) && p.vec &&
+         static_cast<int64_t>(p.B) * p.H * p.G * p.S < (int64_t(1) << 31);
+}
+
 }  // namespace
 
 // dims: B, H (= n_kv), G, S, Sk, D.
 // strides (in elements): q b,h,g,s; k b,h,s; v b,h,s; out b,h,g,s.  The last
 // dimension of each is contiguous.  lse is a contiguous (B, H, G, S) fp32.
-// dtype: 0 float32, 1 bfloat16; any nonzero scale (bfloat16 runs a negative
-// one on a negated q tile with |scale|).  Returns a cudaError_t.
+// dtype: 0 float32, 1 bfloat16.  route: 0 the fp32 kernel, 1 the bf16
+// mma.sync kernel (_tc), 2 the bf16 wgmma kernel (_wg), which the caller
+// chooses; a route that does not take these inputs returns
+// cudaErrorInvalidValue.  Any nonzero scale (the bf16 routes run a
+// negative one on a negated q tile with |scale|).  Launches one kernel and
+// returns a cudaError_t.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, const int64_t* dims,
-                         const int64_t* strides, int dtype, int causal,
-                         int window, int prefix, float scale, void* stream) {
+                         const int64_t* strides, int dtype, int route,
+                         int causal, int window, int prefix, float scale,
+                         void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -608,13 +991,16 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
       static_cast<int64_t>(p.B) * p.H * p.G > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return static_cast<int>(launch_for_d(p, st));
-    case 1:
-      if (!(fabsf(scale) > 0.f)) return static_cast<int>(cudaErrorInvalidValue);
-      p.negq = scale < 0.f;
-      p.scale = fabsf(scale);
-      return static_cast<int>(launch_tc_for_d(p, st));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 0 && dtype == 0) return static_cast<int>(launch_for_d(p, st));
+  if (dtype != 1 || !(fabsf(scale) > 0.f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.negq = scale < 0.f;
+  p.scale = fabsf(scale);
+  if (route == 1) return static_cast<int>(launch_tc_for_d(p, st));
+  if (route == 2 && wg_route_ok(p)) {
+    WgParams a;
+    a.p = p;
+    return static_cast<int>(launch_wg_for_d(a, st));
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) helpers for the warp-specialised flash-attention backward
-// kernels (flash_bwd.cu, *_wg): mbarriers, TMA tensor loads, wgmma with
-// operands described in shared memory under the 128-byte swizzle, register
-// reallocation, named barriers, and the host side of the tensor maps.
+// Hopper (sm_90a) helpers for the warp-specialised flash-attention kernels
+// (the *_wg kernels of flash_fwd.cu and flash_bwd.cu): mbarriers, TMA
+// tensor loads, wgmma with operands described in shared memory under the
+// 128-byte swizzle, register reallocation, named barriers, the tile and
+// store helpers both sources share, and the host side of the tensor maps.
 //
 // Shared-memory tiles.  A bf16 operand tile of R rows and D columns is kept
 // as D / 64 column blocks, each R rows of 128 bytes (64 values) as TMA
@@ -18,6 +19,8 @@
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -109,16 +112,6 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3}], [%2];\n"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_addr(bar)), "r"(c0)
-      : "memory");
-}
-
 // ----------------------------------------- registers and named barriers
 template <int N>
 __device__ __forceinline__ void regs_inc() {
@@ -138,6 +131,50 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
+// The proxy fence between this thread's generic writes to shared memory
+// and later reads of it by wgmma or TMA (the async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ------------------------------------------------------ tiles and stores
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_addr(p);
+  return p + (((a + 1023) & ~1023u) - a);
+}
+
+// True when some (qi, ki) in [qlo, qhi] x [klo, khi] lies in range and is
+// allowed: tiles for which it is false are skipped.  P: a kernel's
+// parameters (S, Sk, causal, window, prefix).
+template <typename P>
+__device__ __forceinline__ bool tile_live(const P& p, int qlo, int qhi,
+                                          int klo, int khi) {
+  qhi = min(qhi, p.S - 1);
+  khi = min(khi, p.Sk - 1);
+  if (qlo > qhi || klo > khi) return false;
+  if (p.prefix && klo < p.prefix) return true;
+  bool live = true;
+  if (p.causal) live = qhi >= klo;
+  if (p.window) live = live && (qlo - khi) < p.window;
+  return live;
+}
+
+// 64 x (8 NO) fp32 accumulators of rows r0 + 16 w + lane / 4 (+ 8) into a
+// bf16 output with row stride rs, rows past n dropped.
+template <int NO>
+__device__ __forceinline__ void store_bf16(const float (&acc)[NO][4], bf16* out,
+                                           int64_t rs, int r, int n, int t4) {
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ri = r + 8 * h;
+      if (ri < n)
+        *reinterpret_cast<__nv_bfloat162*>(out + ri * rs + 8 * j + 2 * t4) =
+            __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+}
+
 // --------------------------------------------------------------- wgmma
 // Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
 // and stride byte offsets in 16-byte units.  K-major: sbo = 1024 (the next
@@ -149,6 +186,18 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
          (static_cast<uint64_t>(1) << 62);
+}
+
+// K-major descriptor of 16-deep step ks of a 64-row slice of a tile of
+// `rows` rows (step ks lies in column block ks / 4).
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows, int ks) {
+  return sw128_desc(tile + (ks >> 2) * rows * 128 + (ks & 3) * 32, 16, 1024);
+}
+
+// MN-major descriptor of rows [16 t, 16 t + 16) of a tile of `rows` rows,
+// all its column blocks.
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows, int t) {
+  return sw128_desc(tile + t * 16 * 128, rows * 128, 1024);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -172,6 +221,16 @@ __device__ __forceinline__ void fence_acc(float (&d)[NT][4]) {
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e]) :: "memory");
+}
+
+// The same for register A fragments that a wgmma may still be reading:
+// placed after its wait, it keeps them from being reused before.
+template <int NT>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e]) :: "memory");
 }
 
 // d (64 x N, fp32, the m16n8 fragment layout of mma.sync per warp: d[j][e]
@@ -225,6 +284,43 @@ struct WgmmaSS<64> {
           "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
           "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
           "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSS<128> {
+  __device__ __forceinline__ static void run(float (&d)[16][4],
+                                             uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
         : "l"(da), "l"(db), "r"(scale_d));
   }
 };
@@ -396,6 +492,24 @@ inline bool bf16_map(CUtensorMap* map, const void* ptr, int rank,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (B, H, G, S, D) operand (q, dO) as the 5-D map (D, S, G, H, B), boxes
+// of 64 columns x `rows` rows; strides in elements.
+inline bool map_5d(CUtensorMap* map, const void* ptr, int B, int H, int G,
+                   int S, int D, int64_t sb, int64_t sh, int64_t sg,
+                   int64_t ss, int rows) {
+  const int64_t dims[5] = {D, S, G, H, B};
+  const int64_t strides[5] = {1, ss, sg, sh, sb};
+  return bf16_map(map, ptr, 5, dims, strides, rows);
+}
+
+// A (B, H, Sk, D) operand (k, v) as the 4-D map (D, Sk, H, B).
+inline bool map_4d(CUtensorMap* map, const void* ptr, int B, int H, int Sk,
+                   int D, int64_t sb, int64_t sh, int64_t ss, int rows) {
+  const int64_t dims[4] = {D, Sk, H, B};
+  const int64_t strides[4] = {1, ss, sh, sb};
+  return bf16_map(map, ptr, 4, dims, strides, rows);
 }
 
 }  // namespace

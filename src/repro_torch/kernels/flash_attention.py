@@ -11,13 +11,20 @@ tensor each computes its plain twin (``flash_fwd_reference``,
 on-card oracle.  ``LAUNCHES`` (forward), ``BWD_DQ_LAUNCHES`` and
 ``BWD_DKV_LAUNCHES`` count kernel launches and nothing else.
 
-The backward has three routes, which ``_bwd_route`` chooses from the
-inputs' dtype, shape, pointers and strides alone: ``"wgmma"`` (bf16, D in
-64/128/256, every operand 16-byte aligned: the warp-specialised wgmma +
-TMA kernels, ``*_wg``), ``"mma"`` (other bf16 inputs: the ``mma.sync``
-kernels, ``*_tc``) and ``"fp32"``.  ``BWD_ROUTE_LAUNCHES`` counts the passes
-(dq and dk/dv each one) that each route launched; a route's kernels that
-refuse their inputs raise, and no other route is tried.
+Each pass has three routes, which ``_fwd_route`` and ``_bwd_route`` choose
+from the inputs' dtype, shape, pointers and strides alone: ``"wgmma"``
+(bf16, D in 64/128/256, every operand 16-byte aligned: the
+warp-specialised wgmma + TMA kernels, ``*_wg``, every model's serving and
+training shape), ``"mma"`` (other bf16 inputs, such as D = 80 or a view
+off 16 bytes: the ``mma.sync`` kernels, ``*_tc``) and ``"fp32"``.
+``FWD_ROUTE_LAUNCHES`` counts the forward launches and
+``BWD_ROUTE_LAUNCHES`` the backward passes (dq and dk/dv each one) that
+each route launched; a route's kernel that refuses its inputs raises, and
+no other route is tried.  The forward is bound by the tensor cores at the
+training shapes (about 1000 FLOP a byte at D = 128, S = 4096): the wgmma
+kernel keeps all of D in one block, feeds both products from shared
+memory that TMA fills, and overlaps each tile's softmax with the previous
+tile's p.v (``csrc/flash_fwd.cu`` has the design).
 
 ``flash_fwd_op`` and ``flash_bwd_op`` are the same entry points registered
 as PyTorch custom ops (``repro_torch::flash_fwd``, ``::flash_bwd``), which
@@ -46,6 +53,7 @@ MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = 0
+FWD_ROUTE_LAUNCHES = {"wgmma": 0, "mma": 0, "fp32": 0}
 BWD_DQ_LAUNCHES = 0
 BWD_DKV_LAUNCHES = 0
 BWD_ROUTE_LAUNCHES = {"wgmma": 0, "mma": 0, "fp32": 0}
@@ -157,18 +165,24 @@ def flash_fwd(q, k, v, *, causal=True, window=0, prefix=0, scale=None):
                       device=q.device).permute(0, 2, 3, 1, 4)
     lse = torch.empty((B, H, G, S), dtype=torch.float32, device=q.device)
     dims = (ctypes.c_int64 * 6)(B, H, G, S, Sk, D)
-    strides = (ctypes.c_int64 * 14)(*q.stride()[:4], *k.stride()[:3],
-                                    *v.stride()[:3], *out.stride()[:4])
+    all_strides = (*q.stride()[:4], *k.stride()[:3], *v.stride()[:3],
+                   *out.stride()[:4])
+    strides = (ctypes.c_int64 * 14)(*all_strides)
+    route = _fwd_route(q.dtype, tuple(q.shape),
+                       [t.data_ptr() for t in (q, k, v, out)], all_strides)
     fn = _fwd_kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), dims, strides, _DTYPE_CODES[q.dtype],
-                 int(causal), int(window), int(prefix), scale, stream)
+                 _ROUTE_CODES[route], int(causal), int(window), int(prefix),
+                 scale, stream)
     if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_fwd kernel launch failed ({route} "
+                           f"route): cudaError {err}")
     global LAUNCHES
     LAUNCHES += 1
+    FWD_ROUTE_LAUNCHES[route] += 1
     return out, lse
 
 
@@ -239,13 +253,13 @@ def flash_bwd(q, k, v, do, lse, delta, *, causal=True, window=0, prefix=0,
     return dq, dk, dv
 
 
-def _bwd_route(dtype, shape, ptrs, strides) -> str:
-    """The backward kernels that take these inputs: ``"fp32"`` for fp32;
-    for bf16 ``"wgmma"`` where D is 64, 128 or 256, every pointer in
-    ``ptrs`` (q, k, v, dO, lse, delta) and every stride in ``strides``
-    (elements, the last dimension's left out) is 16-byte aligned, as TMA
-    needs, and the B H G S rows of lse fit an int32 coordinate; else
-    ``"mma"``.  ``shape`` is q's (B, n_kv, G, S, D)."""
+def _route(dtype, shape, ptrs, strides) -> str:
+    """The kernels that take a pass's inputs: ``"fp32"`` for fp32; for
+    bf16 ``"wgmma"`` where D is 64, 128 or 256, every pointer in ``ptrs``
+    and every stride in ``strides`` (elements, the last dimension's left
+    out) is 16-byte aligned, as TMA needs, and the B H G S rows of lse fit
+    an int32 coordinate; else ``"mma"``.  ``shape`` is q's
+    (B, n_kv, G, S, D)."""
     if dtype == torch.float32:
         return "fp32"
     B, H, G, S, D = shape
@@ -253,6 +267,12 @@ def _bwd_route(dtype, shape, ptrs, strides) -> str:
         all(s % 8 == 0 for s in strides)
     rows_fit = B * H * G * S < 2 ** 31
     return "wgmma" if D in WG_HEAD_DIMS and aligned and rows_fit else "mma"
+
+
+# Each pass's route from its own operands: the forward's from q, k, v and
+# out, the backward's from q, k, v, dO, lse and delta (and the strides of
+# q, k, v and dO).  Two names, so that a measurement can replace one alone.
+_fwd_route = _bwd_route = _route
 
 
 def _dkv_chunks(B, H, G, Sk, D) -> int:
@@ -275,7 +295,7 @@ def _fwd_kernel():
         fn.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     return fn
 
 

@@ -54,6 +54,21 @@ CROSS_CASES = [
     (1, 77, 300, 8, 1, 256),
     (2, 333, 130, 8, 2, 256),            # D = 256, Sq > Sk, G = 4 chunked
 ]
+# The forward's wgmma kernel (bf16, D in {64, 128, 256}) at the edges of its
+# tiles and masks: (B, S, Hq, n_kv, D, causal, window, prefix[, Sk]).
+WG_FWD_CASES = [
+    (1, 333, 8, 2, 128, True, 0, 0),        # odd S: a ragged last q tile
+    (1, 257, 4, 1, 64, True, 0, 0),         # odd S at D = 64
+    (2, 257, 4, 2, 256, True, 0, 0),        # odd S at D = 256
+    (4, 513, 16, 16, 64, False, 0, 0, 512),  # seamless's cross-attention
+    (2, 200, 4, 2, 128, False, 0, 0, 333),  # Sq < Sk, ragged both
+    (2, 333, 8, 2, 256, False, 0, 0, 130),  # Sq > Sk at D = 256
+    (1, 1000, 16, 1, 256, True, 300, 0),    # window at D = 256, G = 16
+    (2, 700, 8, 1, 256, True, 0, 256),      # prefix at D = 256, G = 8
+    (1, 600, 8, 1, 256, True, 64, 40),      # window and prefix: a gap
+    (1, 300, 4, 2, 128, False, 64, 0),      # window without causal
+    (2, 1024, 64, 4, 128, True, 0, 0),      # G = 16
+]
 # fp32: the reference tests' 3e-4 (the scalar fp32 kernel).  bf16: the
 # tensor-core kernel sums exact products of the bf16 inputs in fp32, rounds
 # p to bf16 once as the operand of P.V and `out` once when stored (each at
@@ -88,6 +103,12 @@ def _assert_route(before, route):
     assert moved == {k: 2 if k == route else 0 for k in before}, moved
 
 
+def _assert_fwd_route(before, route):
+    """One flash_fwd since ``before``, on ``route``."""
+    moved = {k: fa.FWD_ROUTE_LAUNCHES[k] - before[k] for k in before}
+    assert moved == {k: 1 if k == route else 0 for k in before}, moved
+
+
 def _assert_row_blocks_close(got, want, dtype, name):
     for i, (g, w) in enumerate(zip(torch.tensor_split(got.float(), 8, -2),
                                    torch.tensor_split(want.float(), 8, -2))):
@@ -112,11 +133,12 @@ def test_flash_fwd_kernel_matches_plain_version(cuda, case, dtype):
     v = torch.randn((B, S, n_kv, D), generator=gen, device=cuda).to(dtype)
     q5 = q.reshape(B, S, n_kv, Hq // n_kv, D).permute(0, 2, 3, 1, 4)
     k4, v4 = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
-    before = fa.LAUNCHES
+    before, routes = fa.LAUNCHES, dict(fa.FWD_ROUTE_LAUNCHES)
     out, lse = fa.flash_fwd(q5, k4, v4, causal=causal, window=window,
                             prefix=prefix)
     torch.cuda.synchronize()
     assert fa.LAUNCHES == before + 1
+    _assert_fwd_route(routes, _want_route(dtype, D))
     ref_out, ref_lse = fa.flash_fwd_reference(
         q5.float(), k4.float(), v4.float(), causal=causal, window=window,
         prefix=prefix)
@@ -154,10 +176,11 @@ def test_flash_fwd_bf16_unaligned_views_match_plain_version(cuda, view):
     k4, v4 = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
     assert any(t.data_ptr() % 16 or any(st % 8 for st in t.stride())
                for t in (q5, k4, v4))
-    before = fa.LAUNCHES
+    before, routes = fa.LAUNCHES, dict(fa.FWD_ROUTE_LAUNCHES)
     out, lse = fa.flash_fwd(q5, k4, v4, causal=True)
     torch.cuda.synchronize()
     assert fa.LAUNCHES == before + 1
+    _assert_fwd_route(routes, "mma")
     ref_out, ref_lse = fa.flash_fwd_reference(q5.float(), k4.float(),
                                               v4.float(), causal=True)
     tol = TOL[torch.bfloat16]
@@ -167,21 +190,25 @@ def test_flash_fwd_bf16_unaligned_views_match_plain_version(cuda, view):
 
 
 def test_flash_fwd_bf16_kernel_takes_a_negative_scale(cuda):
-    """A negative scale runs the tensor-core kernel on a negated q tile
+    """A negative scale runs the tensor-core kernels on a negated q tile
     with |scale|: held against the plain version at the bf16 limits,
-    causal and windowed, at D == 128 (no column guards) and D = 80."""
+    causal and windowed, on the wgmma route at D = 128, 256 and 64 (each
+    consumer warpgroup negates its q rows in shared memory) and on the mma
+    route at D = 80."""
     g = torch.Generator(device=cuda).manual_seed(7)
-    for B, S, H, D, window in [(2, 200, 4, 128, 0), (1, 300, 2, 80, 64)]:
+    for B, S, H, D, window in [(2, 200, 4, 128, 0), (1, 300, 2, 80, 64),
+                               (1, 300, 1, 256, 64), (1, 257, 2, 64, 0)]:
         q, k, v = (torch.randn(shape, device=cuda, generator=g)
                    .to(torch.bfloat16)
                    for shape in [(B, H, 2, S, D), (B, H, S, D),
                                  (B, H, S, D)])
         scale = -1.0 / D ** 0.5
-        before = fa.LAUNCHES
+        before, routes = fa.LAUNCHES, dict(fa.FWD_ROUTE_LAUNCHES)
         out, lse = fa.flash_fwd(q, k, v, causal=True, window=window,
                                 scale=scale)
         torch.cuda.synchronize()
         assert fa.LAUNCHES == before + 1
+        _assert_fwd_route(routes, _want_route(torch.bfloat16, D))
         ref_out, ref_lse = fa.flash_fwd_reference(
             q.float(), k.float(), v.float(), causal=True, window=window,
             scale=scale)
@@ -202,6 +229,59 @@ def test_flash_fwd_fp32_kernel_takes_a_negative_scale(cuda):
     tol = TOL[torch.float32]
     torch.testing.assert_close(out, ref_out, rtol=tol, atol=tol)
     torch.testing.assert_close(lse, ref_lse, rtol=tol, atol=tol)
+
+
+def _wg_fwd_inputs(case, cuda, seed):
+    B, S, Hq, n_kv, D, causal, window, prefix = case[:8]
+    Sk = case[8] if len(case) > 8 else S
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    mk = lambda *shape: torch.randn(shape, generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    q5 = mk(B, S, Hq, D).reshape(B, S, n_kv, Hq // n_kv, D) \
+        .permute(0, 2, 3, 1, 4)
+    k4 = mk(B, Sk, n_kv, D).permute(0, 2, 1, 3)
+    v4 = mk(B, Sk, n_kv, D).permute(0, 2, 1, 3)
+    return (q5, k4, v4), dict(causal=causal, window=window, prefix=prefix)
+
+
+def _assert_fwd_close(got, want):
+    out, lse = got
+    ref_out, ref_lse = want
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref_out, rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-3, atol=1e-3)
+    _assert_row_blocks_close(out, ref_out, torch.bfloat16, "out")
+
+
+@pytest.mark.parametrize("case", WG_FWD_CASES)
+def test_flash_fwd_wgmma_route_matches_plain_version(cuda, case):
+    """The wgmma forward at odd S, Sq != Sk, window and prefix at D = 256
+    (and both, which leave a gap of masked tiles), and G = 16: on its
+    route, at the bf16 limits."""
+    (q5, k4, v4), mask = _wg_fwd_inputs(case, cuda, sum(case[:5]))
+    routes = dict(fa.FWD_ROUTE_LAUNCHES)
+    got = fa.flash_fwd(q5, k4, v4, **mask)
+    torch.cuda.synchronize()
+    _assert_fwd_route(routes, "wgmma")
+    _assert_fwd_close(got, fa.flash_fwd_reference(
+        q5.float(), k4.float(), v4.float(), **mask))
+
+
+def test_flash_fwd_wgmma_route_is_bit_equal_on_a_repeat(cuda):
+    """Each output row has one writer and a fixed order of tiles: the same
+    inputs give the same bits, at a training shape of each D."""
+    for case in [(2, 2048, 16, 16, 64, True, 0, 0),
+                 (2, 4096, 64, 4, 128, True, 0, 0),
+                 (2, 4096, 16, 1, 256, True, 2048, 0)]:
+        (q5, k4, v4), mask = _wg_fwd_inputs(case, cuda, 3)
+        routes = dict(fa.FWD_ROUTE_LAUNCHES)
+        first = fa.flash_fwd(q5, k4, v4, **mask)
+        second = fa.flash_fwd(q5, k4, v4, **mask)
+        torch.cuda.synchronize()
+        moved = {k: fa.FWD_ROUTE_LAUNCHES[k] - routes[k] for k in routes}
+        assert moved == {"wgmma": 2, "mma": 0, "fp32": 0}
+        assert torch.equal(first[0], second[0]), case
+        assert torch.equal(first[1], second[1]), case
 
 
 def test_flash_fwd_kernel_refuses_a_strided_last_dim(cuda):
