@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..spans import span
+
 Params = dict
 
 
@@ -169,27 +171,29 @@ def attention_decode(params: Params, x: torch.Tensor, cfg,
     ``cache_v`` in place (slot ``pos % S_cache``): at full width a copy
     would move the whole cache every step.  The caches are still returned,
     so the API matches."""
-    B, one, d = x.shape
-    S_cache = cache_k.shape[1]
-    q = _split_heads(x @ params["wq"], n_heads, cfg.head_dim)
-    k = _split_heads(x @ params["wk"], cfg.n_kv_heads, cfg.head_dim)
-    v = _split_heads(x @ params["wv"], cfg.n_kv_heads, cfg.head_dim)
-    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q = apply_rope(q, posv, cfg.rotary_pct, cfg.rope_theta)
-    k = apply_rope(k, posv, cfg.rotary_pct, cfg.rope_theta)
-    slot = pos % S_cache
-    cache_k[:, slot:slot + 1] = k.to(cache_k.dtype)
-    cache_v[:, slot:slot + 1] = v.to(cache_v.dtype)
-    # Ring buffer: slots beyond `pos` are unwritten until the buffer wraps
-    # (SWA archs allocate cache_len == window, so wrapping IS the sliding
-    # window; RoPE is baked into cached k, and softmax is
-    # permutation-invariant over slots, so ring order is harmless).
-    idx = torch.arange(S_cache, device=x.device)
-    valid = (idx <= pos) | (pos >= S_cache)
-    mask = torch.where(valid, 0.0, -1e30).to(torch.float32)[None, None, None]
-    out = gqa_scores_softmax_v(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
-                               mask, cfg.n_kv_heads)
-    return out.reshape(B, 1, -1) @ params["wo"], cache_k, cache_v
+    with span("decode.attention"):
+        B, one, d = x.shape
+        S_cache = cache_k.shape[1]
+        q = _split_heads(x @ params["wq"], n_heads, cfg.head_dim)
+        k = _split_heads(x @ params["wk"], cfg.n_kv_heads, cfg.head_dim)
+        v = _split_heads(x @ params["wv"], cfg.n_kv_heads, cfg.head_dim)
+        posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, posv, cfg.rotary_pct, cfg.rope_theta)
+        k = apply_rope(k, posv, cfg.rotary_pct, cfg.rope_theta)
+        slot = pos % S_cache
+        cache_k[:, slot:slot + 1] = k.to(cache_k.dtype)
+        cache_v[:, slot:slot + 1] = v.to(cache_v.dtype)
+        # Ring buffer: slots beyond `pos` are unwritten until the buffer
+        # wraps (SWA archs allocate cache_len == window, so wrapping IS the
+        # sliding window; RoPE is baked into cached k, and softmax is
+        # permutation-invariant over slots, so ring order is harmless).
+        idx = torch.arange(S_cache, device=x.device)
+        valid = (idx <= pos) | (pos >= S_cache)
+        mask = torch.where(valid, 0.0, -1e30).to(torch.float32)[
+            None, None, None]
+        out = gqa_scores_softmax_v(q, cache_k.to(q.dtype),
+                                   cache_v.to(q.dtype), mask, cfg.n_kv_heads)
+        return out.reshape(B, 1, -1) @ params["wo"], cache_k, cache_v
 
 
 # --------------------------- MLPs ---------------------------

@@ -2,9 +2,7 @@
 fleet scheduler."""
 from .kvstore import KVCacheStore, KVStoreError
 from .scheduler import NodeState, SchedulerError, ServeScheduler
-from .serve_step import (make_decode_step, make_prefill_step,
-                         measure_decode_s)
+from .serve_step import make_decode_step, make_prefill_step
 
 __all__ = ["KVCacheStore", "KVStoreError", "NodeState", "SchedulerError",
-           "ServeScheduler", "make_decode_step", "make_prefill_step",
-           "measure_decode_s"]
+           "ServeScheduler", "make_decode_step", "make_prefill_step"]

@@ -18,6 +18,7 @@ from ..device import require_on, resolve_device
 from ..kernels import ops
 from ..kernels.quantize import BLOCK_GROUPS, GROUP
 from ..models import forward_train
+from ..spans import span
 from ..tree import layer_slices, tree_leaves, tree_map
 from .loss import lm_loss
 from .optimizer import OptConfig, opt_update
@@ -65,13 +66,15 @@ def loss_and_grads(params, cfg, batch, n_groups: int = 1):
         p.requires_grad_(True)
     try:
         with torch.enable_grad():
-            hidden, aux = forward_train(params, cfg, batch,
-                                        n_groups=n_groups)
-            loss = lm_loss(params, cfg, hidden, batch["tokens"], aux)
-            del hidden
-            loss.backward()
-        grads = tree_map(lambda p: p.grad if p.grad is not None
-                         else torch.zeros_like(p), params)
+            with span("train.forward"):
+                hidden, aux = forward_train(params, cfg, batch,
+                                            n_groups=n_groups)
+                loss = lm_loss(params, cfg, hidden, batch["tokens"], aux)
+                del hidden
+            with span("train.backward"):
+                loss.backward()
+                grads = tree_map(lambda p: p.grad if p.grad is not None
+                                 else torch.zeros_like(p), params)
     finally:
         for p in leaves:
             p.grad = None
@@ -88,17 +91,20 @@ def make_train_step(cfg, oc: OptConfig | None = None, n_groups: int = 1,
     device = resolve_device(device)
 
     def train_step(params, opt_state, batch):
-        require_on(device, batch["tokens"])
-        loss, aux, grads = loss_and_grads(params, cfg, batch, n_groups)
-        gnorm = global_norm(grads)
-        with torch.no_grad():
-            scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9),
-                                max=1.0)
-            tree_map(lambda g: g.mul_(scale.to(g.dtype)), grads)
+        with span("train.step"):
+            require_on(device, batch["tokens"])
+            loss, aux, grads = loss_and_grads(params, cfg, batch, n_groups)
+            with span("train.clip"), torch.no_grad():
+                gnorm = global_norm(grads)
+                scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9),
+                                    max=1.0)
+                tree_map(lambda g: g.mul_(scale.to(g.dtype)), grads)
             if cfg.grad_compression:
-                grads = compress_grads(grads)
-        params, opt_state = opt_update(cfg.optimizer, grads, opt_state,
-                                       params, oc)
+                with span("train.compress"):
+                    grads = compress_grads(grads)
+            with span("train.optimizer"):
+                params, opt_state = opt_update(cfg.optimizer, grads,
+                                               opt_state, params, oc)
         metrics = {"loss": loss, "grad_norm": gnorm, "aux_loss": aux}
         return params, opt_state, metrics
 

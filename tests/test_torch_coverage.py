@@ -43,6 +43,8 @@ HLO = ("hlo_cost parses compiled HLO text: op_cost counts the ops at "
 GSPMD = "GSPMD sharding only: the port runs each step on one device"
 UNCALLED = "never called by the reference"
 RENAMED = "done under another name"
+MEASURED = ("measured by the benchmark's chat cell and the serve.decode "
+            "span")
 
 # "module.py" (a whole module with no port file) or "module.py:name" ->
 # (reason, counterpart): "port_module.py:name", a file under the port, or
@@ -158,6 +160,8 @@ NO_COUNTERPART = {
         (RENAMED, "models/transformer.py:forward_train"),
     "models/transformer.py:param_shapes":
         (RENAMED, "models/model.py:param_shapes"),
+
+    "serve/serve_step.py:measure_decode_s": (MEASURED, "spans.py:span"),
 }
 
 
@@ -343,7 +347,7 @@ def test_port_defines_every_reference_name(module):
 def test_no_counterpart_table_matches_the_reference():
     assert stale_entries(REF, PORT, NO_COUNTERPART) == []
     assert {r for r, _ in NO_COUNTERPART.values()} \
-        == {PALLAS, ORACLE, HLO, GSPMD, UNCALLED, RENAMED}
+        == {PALLAS, ORACLE, HLO, GSPMD, UNCALLED, RENAMED, MEASURED}
 
 
 def test_every_pallas_call_has_a_kernel():

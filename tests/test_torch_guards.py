@@ -65,9 +65,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
 
 @pytest.mark.parametrize("call", ["init_model", "make_inputs", "init_cache",
                                   "make_prefill_step", "make_decode_step",
-                                  "measure_decode_s", "make_train_step",
-                                  "make_eval_step", "launch.train.run",
-                                  "KVCacheStore"])
+                                  "make_train_step", "make_eval_step",
+                                  "launch.train.run", "KVCacheStore"])
 def test_entry_points_refuse_cpu_without_being_asked(call):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -82,7 +81,6 @@ def test_entry_points_refuse_cpu_without_being_asked(call):
         "init_cache": lambda: models.init_cache(cfg, 8, 1),
         "make_prefill_step": lambda: serve.make_prefill_step(cfg),
         "make_decode_step": lambda: serve.make_decode_step(cfg),
-        "measure_decode_s": lambda: serve.measure_decode_s(),
         "make_train_step": lambda: train.make_train_step(cfg),
         "make_eval_step": lambda: train.make_eval_step(cfg),
         "launch.train.run": lambda: _run_driver_on_the_default_device(),

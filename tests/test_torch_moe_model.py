@@ -33,8 +33,7 @@ from repro_torch.convert import opt_state_from_numpy, params_from_numpy
 from repro_torch.models import (cache_spec, forward_decode, forward_prefill,
                                 forward_train, init_model)
 from repro_torch.models import moe as M
-from repro_torch.serve import (make_decode_step, make_prefill_step,
-                               measure_decode_s)
+from repro_torch.serve import make_decode_step, make_prefill_step
 from repro_torch.train import OptConfig, loss_and_grads, make_train_step
 
 ARCH_IDS = ["qwen3-moe-235b-a22b", "arctic-480b"]
@@ -238,12 +237,6 @@ def test_serve_step_logits_and_tokens_match_jax(arch, impl):
         assert tuple(t.shape) == tuple(j.shape)
         _close(t, j, name="logits")
     np.testing.assert_array_equal(ttoks, jtoks)
-
-
-def test_measure_decode_s_takes_the_moe_arch():
-    s = measure_decode_s("qwen3-moe-235b-a22b", batch=2, prefill_len=8,
-                         iters=2, warmup=1, device="cpu")
-    assert np.isfinite(s) and s > 0
 
 
 # ------------------------------ gradients ------------------------------

@@ -26,8 +26,7 @@ from repro_torch.configs import ARCHS, smoke_variant
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import (forward_decode, forward_prefill,
                                 forward_train, init_model)
-from repro_torch.serve import (make_decode_step, make_prefill_step,
-                               measure_decode_s)
+from repro_torch.serve import make_decode_step, make_prefill_step
 
 ARCH_IDS = ["deepseek-7b", "chatglm3-6b", "h2o-danube-1.8b"]
 IMPLS = ["flash", "flash_pallas"]
@@ -193,12 +192,6 @@ def test_init_model_draws_full_param_tree():
             return {k: shapes(v) for k, v in t.items()}
         return tuple(t.shape)
     assert shapes(tparams) == jshapes
-
-
-def test_measure_decode_s_on_cpu_when_asked():
-    t = measure_decode_s("deepseek-7b", batch=2, prefill_len=8, iters=2,
-                         warmup=1, device="cpu")
-    assert 0.0 < t < 60.0
 
 
 def test_swa_prompt_longer_than_window_matches_jax():
