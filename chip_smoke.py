@@ -12,7 +12,9 @@ Phases, each fatal on failure:
    and check that the bf16 flash-attention kernels multiply on the tensor
    cores (HMMA/HGMMA instructions in their SASS), the forward's and the
    backward's wgmma kernels (``WGMMA_KERNELS``) on wgmma (HGMMA) with no
-   register spilled (ptxas -v);
+   register spilled (ptxas -v), and the decode-attention kernels
+   (``DECODE_ATTN_KERNELS``) with no register spilled, the tensor-core
+   route's on HMMA;
 2. hold each kernel against its plain torch version on the card: flash
    attention forward and backward in fp32 and bf16 at the reference tests'
    cases, a ragged S, D=256 and the slices' shapes (the MoE slices' GQA
@@ -25,13 +27,20 @@ Phases, each fatal on failure:
    bit for bit on a layer-sized gradient, an all-zero group and .5 ties;
    checksum and stripe pack / unpack bit for bit, the checksum also
    against ``core.integrity.checksum`` of the host bytes, up to a
-   2.7 GB (> 2^31 bytes) leaf;
+   2.7 GB (> 2^31 bytes) leaf; decode attention (rope, the ring cache's
+   slot write and the attention in one op) against its twin at every
+   family's full-width decode shape, chat's and a device-bound G = 16 one
+   (``DECODE_CASES``), bf16 and fp32, each shape on its route, then timed
+   against its bound (its device time, the CUDA-core route's where the
+   shape takes the tensor cores, and the library's version of the same
+   step are read after the other kernel times, under the profiler);
 3. drive the serving slice through the port's entry points at full width:
    deepseek-7b (30 layers, d 4096, bf16, random weights from a seeded
    generator on the card), ``attn_impl="flash_pallas"``, B=4 prompts of
    1024 tokens through ``make_prefill_step``, then 32 greedy
    ``make_decode_step`` steps; every launch counter is set to 0 just before
-   and read just after, and the kernel must have run once per layer;
+   and read just after, and the kernel must have run once per layer
+   (``decode_attn`` once a layer a decode step, in every serving phase);
    every ``flash_fwd`` launch must have taken the wgmma route
    (``flash_attention.FWD_ROUTE_LAUNCHES``), as in every serving and
    training phase below; check the outputs (finite logits, kernel path vs
@@ -391,7 +400,8 @@ CKPT_KILL_AT = 7
 # instructions.
 TC_KERNELS = {"flash_fwd": ("flash_fwd_tc_kernel",),
               "flash_bwd": ("flash_bwd_dq_tc_kernel",
-                            "flash_bwd_dkv_tc_kernel")}
+                            "flash_bwd_dkv_tc_kernel"),
+              "decode_attn": ("decode_attn_mma_kernel",)}
 # The wgmma routes (bf16, D in {64, 128, 256}, aligned views: every serving
 # and training shape), whose SASS must hold HGMMA (wgmma) instructions and
 # whose ptxas report must show no spilled register.
@@ -403,6 +413,36 @@ ROUTES = ("wgmma", "mma", "fp32")
 REDUCE_KERNEL = "flash_bwd_dkv_reduce_kernel"
 # host microseconds of building one pass's tensor maps, over this many
 MAP_BUILD_REPS = 2000
+# The decode-attention kernels (csrc/decode_attn.cu): none may spill a
+# register, and the tensor-core route's must hold HMMA instructions.
+DECODE_ATTN_KERNELS = ("decode_attn_simt_kernel", "decode_attn_mma_kernel",
+                       "decode_attn_combine_kernel")
+DECODE_ROUTES = ("simt", "mma")
+# Decode attention (phase_decode_attention): every family's full-width
+# decode shape, (B, S_cache, Hq, n_kv, D, rotary_pct, rope_theta, pos):
+# the serving slice's rows, prompts and slots to spare (recurrentgemma's
+# ring of 2048 past its wrap; paligemma's 256 patches before its prompt;
+# seamless's 512 decoder positions), chat's rounds of 16 at the first
+# and last traced positions (cardbench's deepseek-7b.serve-chat), and
+# qwen3-moe's G = 16 at 64 rows of 4096 slots, large enough that the
+# device time, not the wrapper's host time, sets the pace (0.16 ms bound).
+DECODE_CASES = {
+    "deepseek": (SLICE_BATCH, SLICE_PROMPT + SLICE_PAD, 32, 32, 128, 1.0,
+                 1e4, SLICE_PROMPT),
+    "chat_first": (16, 1152, 32, 32, 128, 1.0, 1e4, 1024),
+    "chat_last": (16, 1152, 32, 32, 128, 1.0, 1e4, 1055),
+    "chatglm3": (SLICE_BATCH, 1056, 32, 2, 128, 0.5, 1e4, 1040),
+    "stablelm": (SLICE_BATCH, 1056, 32, 32, 80, 0.25, 1e4, 1030),
+    "h2o_danube": (SLICE_BATCH, 1056, 32, 8, 80, 1.0, 1e4, 1050),
+    "qwen3_moe": (SLICE_BATCH, 1056, 64, 4, 128, 1.0, 1e6, 1055),
+    "arctic": (SLICE_BATCH, 1056, 56, 8, 128, 1.0, 1e4, 1025),
+    "paligemma": (SLICE_BATCH, 1312, 8, 1, 256, 1.0, 1e4, 1280),
+    "recurrentgemma": (SLICE_BATCH, 2048, 16, 1, 256, 1.0, 1e4, 2100),
+    "seamless": (SLICE_BATCH, 544, 16, 16, 64, 0.0, 1e4, 512),
+    "g16_large": (64, 4096, 64, 4, 128, 1.0, 1e6, 4095),
+}
+# the flash forward's limits (TOL's "out")
+DECODE_TOL = {"float32": 3e-4, "bfloat16": 1e-2}
 
 
 def fail(msg: str) -> None:
@@ -569,6 +609,14 @@ def phase_build() -> None:
         if any(not any(k in fn for fn in spills) for k in names) \
                 or any(spills.values()):
             fail(f"a {lib} wgmma kernel spills registers: {spills}")
+    if "decode_attn" not in logs:
+        fail("decode_attn was not built by this run, so its ptxas report "
+             "is missing (remove build/)")
+    spills = ptxas_spills(logs["decode_attn"], DECODE_ATTN_KERNELS)
+    print(json.dumps({"decode_attn_ptxas_spill_bytes": spills}))
+    if any(not any(k in fn for fn in spills) for k in DECODE_ATTN_KERNELS) \
+            or any(spills.values()):
+        fail(f"a decode_attn kernel spills registers: {spills}")
 
 
 def moved_route(counts: dict, before: dict, by: int) -> str:
@@ -860,6 +908,208 @@ def phase_storage_kernels(device="cuda") -> dict:
     return errs
 
 
+def _ulps(a, b) -> int:
+    """The most units in the last place between two same-dtype tensors."""
+    import torch
+    it = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return int((a.view(it).long() - b.view(it).long()).abs().max())
+
+
+def decode_library(q, k, v, ck, cv, pos: int, inv, rot: int):
+    """The same decode step from PyTorch's own calls, as a yardstick: rope
+    from the inverse frequencies kept on the card (fp32 products rounded
+    once, as the twin), the new k and v written into the slot in place,
+    and ``scaled_dot_product_attention`` (``enable_gqa``) over the bf16
+    caches' valid slots as they lie, a (B, Hkv, n_valid, D) view."""
+    import torch
+    import torch.nn.functional as F
+    B, _, Hq, D = q.shape
+    S, Hkv = ck.shape[1], ck.shape[2]
+
+    def rope(x):
+        if rot == 0:
+            return x
+        ang = inv * float(pos)
+        c, s = torch.cos(ang), torch.sin(ang)
+        x1, x2 = x[..., :rot // 2].float(), x[..., rot // 2:rot].float()
+        return torch.cat([(x1 * c - x2 * s).to(x.dtype),
+                          (x2 * c + x1 * s).to(x.dtype), x[..., rot:]], -1)
+
+    slot, n = pos % S, min(pos + 1, S)
+    ck[:, slot] = rope(k)[:, 0]
+    cv[:, slot] = v[:, 0]
+    out = F.scaled_dot_product_attention(
+        rope(q).transpose(1, 2), ck[:, :n].transpose(1, 2),
+        cv[:, :n].transpose(1, 2), enable_gqa=Hq != Hkv)
+    return out.transpose(1, 2)
+
+
+def _device_ms_and_launches(fn, iters: int = 5) -> tuple[float, float]:
+    """Device ms and device operations a call of ``fn`` (torch.profiler:
+    the sum of the device events' durations, and their count)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ev:
+        fail("the profiler saw no device operation")
+    us = sum(e.time_range.end - e.time_range.start for e in ev)
+    return us / 1e3 / iters, len(ev) / iters
+
+
+def forced_decode_route(da, route: str):
+    """A context in which ``decode_attn`` takes ``route`` whatever its
+    inputs (``_route`` replaced), to time one design against another on
+    the same inputs; for measurement only."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        real = da._route
+        da._route = lambda *a: route
+        try:
+            yield
+        finally:
+            da._route = real
+    return ctx()
+
+
+def _decode_inputs(case, dtype):
+    """q, k, v (before rope) and the two caches of a DECODE_CASES shape,
+    drawn on the card from a seed of the shape."""
+    import torch
+    B, S, Hq, n_kv, D = case[:5]
+    gen = torch.Generator(device="cuda").manual_seed(S * D + Hq)
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dtype)
+    return (mk(B, 1, Hq, D), mk(B, 1, n_kv, D), mk(B, 1, n_kv, D),
+            mk(B, S, n_kv, D), mk(B, S, n_kv, D))
+
+
+def phase_decode_attention() -> dict:
+    """The decode-attention kernel (``kernels.decode_attention``) against
+    its plain twin, run on the card in the same dtype, at every
+    DECODE_CASES shape in bf16 and fp32: the output within DECODE_TOL, the
+    v slot bit-equal and the k slot within one ulp, every other slot
+    untouched, one launch on the route the shape takes (bf16 with G > 4
+    on the tensor cores).  Then, in bf16, its time (CUDA events; each call
+    writes its slot again, the same values) against its bound
+    (``decode_attn_bytes`` at HBM_BYTES_PER_S: q, each valid K/V row once,
+    the slot and the output) and the twin's.  Device times come later,
+    from ``phase_decode_attention_times``."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    out, worst = {}, 0.0
+    for name, case in DECODE_CASES.items():
+        B, S, Hq, n_kv, D, pct, theta, pos = case
+        r = {"case": list(case)}
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            q, k, v, ck, cv = _decode_inputs(case, dtype)
+            ck0, cv0 = ck.clone(), cv.clone()
+            route = da._route(dtype, Hq // n_kv)
+            _zero_counters()
+            got = da.decode_attn(q, k, v, ck, cv, pos, pct, theta, False)
+            torch.cuda.synchronize()
+            routes = dict(da.ROUTE_LAUNCHES)
+            want = da.decode_attention_reference(q, k, v, ck0, cv0, pos,
+                                                 pct, theta, False)
+            slot = pos % S
+            keep = torch.arange(S, device="cuda") != slot
+            err = float((got.float() - want.float()).abs().max())
+            r[dn] = {"route": route, "max_abs_err": err,
+                     "k_slot_ulps": _ulps(ck[:, slot], ck0[:, slot])}
+            print(json.dumps({"decode_attn_check": {name: {dn: r[dn]}}}))
+            if not torch.allclose(got.float(), want.float(),
+                                  rtol=DECODE_TOL[dn], atol=DECODE_TOL[dn]):
+                fail(f"decode_attn {name} {dn}: max |error| {err}")
+            if not torch.equal(cv[:, slot], cv0[:, slot]) \
+                    or r[dn]["k_slot_ulps"] > 1:
+                fail(f"decode_attn {name} {dn}: the slot differs from the "
+                     f"twin's (k by {r[dn]['k_slot_ulps']} ulp)")
+            if not (torch.equal(ck[:, keep], ck0[:, keep])
+                    and torch.equal(cv[:, keep], cv0[:, keep])):
+                fail(f"decode_attn {name} {dn}: a slot other than {slot} "
+                     f"changed")
+            if routes != {k2: int(k2 == route) for k2 in DECODE_ROUTES}:
+                fail(f"decode_attn {name} {dn}: launches by route {routes}")
+            worst = max(worst, err)
+            if dtype == torch.bfloat16:
+                n_gc = da._group_chunks(route, Hq // n_kv)
+                r["splits"] = da.decode_splits(B, n_kv * n_gc,
+                                               min(pos + 1, S))
+                r["ms"] = cuda_ms(lambda: da.decode_attn(
+                    q, k, v, ck, cv, pos, pct, theta, False), iters=50)
+                r["plain_ms"] = cuda_ms(
+                    lambda: da.decode_attention_reference(
+                        q, k, v, ck0, cv0, pos, pct, theta, False), iters=5)
+                r["bound_ms"] = da.decode_attn_bytes(
+                    q, k, v, ck, cv, pos) / HBM_BYTES_PER_S * 1e3
+            del q, k, v, ck, cv, ck0, cv0, got, want
+        out[name] = r
+        print(json.dumps({"decode_attn": {name: r}}))
+    _zero_counters()
+    torch.cuda.empty_cache()
+    out["max_abs_err"] = worst
+    return out
+
+
+def phase_decode_attention_times() -> dict:
+    """At every DECODE_CASES shape in bf16, the decode-attention kernel's
+    device time and device operations a call (the profiler's:
+    ``device_ms``, ``launches``) and its share of the byte bound; the
+    CUDA-core route's device time where the shape takes the tensor cores
+    (``simt_device_ms``); and the library's version of the same step
+    (``decode_library``: its error against the twin, its time, device
+    time and device operations a call, and the backend its attention
+    takes).  Run after the other kernel-time phases, where the profiler
+    is first started."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    out = {}
+    for name, case in DECODE_CASES.items():
+        B, S, Hq, n_kv, D, pct, theta, pos = case
+        q, k, v, ck, cv = _decode_inputs(case, torch.bfloat16)
+        lk, lv = ck.clone(), cv.clone()
+        want = da.decode_attention_reference(q, k, v, ck.clone(), cv.clone(),
+                                             pos, pct, theta, False)
+        route = da._route(torch.bfloat16, Hq // n_kv)
+        call = lambda: da.decode_attn(q, k, v, ck, cv, pos, pct, theta,
+                                      False)
+        r = {"route": route}
+        r["device_ms"], r["launches"] = _device_ms_and_launches(call)
+        r["share_of_bound"] = da.decode_attn_bytes(
+            q, k, v, ck, cv, pos) / HBM_BYTES_PER_S * 1e3 / r["device_ms"]
+        if route != "simt":
+            with forced_decode_route(da, "simt"):
+                r["simt_device_ms"] = _device_ms_and_launches(call)[0]
+        inv, rot = da._inv_freq(q.device, D, pct, theta)
+        lib = lambda: decode_library(q, k, v, lk, lv, pos, inv, rot)
+        r["library_max_abs_err"] = float(
+            (lib().float() - want.float()).abs().max())
+        r["library_ms"] = cuda_ms(lib, iters=50)
+        r["library_device_ms"], r["library_launches"] = \
+            _device_ms_and_launches(lib)
+        n = min(pos + 1, S)
+        r["library_attention"] = sdpa_backend(
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), lk[:, :n].transpose(1, 2),
+                lv[:, :n].transpose(1, 2),
+                enable_gqa=Hq != n_kv))["backend"]
+        del q, k, v, ck, cv, lk, lv, want
+        out[name] = r
+        print(json.dumps({"decode_attn_times": {name: r}}))
+    _zero_counters()
+    torch.cuda.empty_cache()
+    return out
+
+
 def attn_layers(cfg) -> int:
     """The attention layers of an architecture: each launches ``flash_fwd``
     once a prefill under ``flash_pallas`` (an encoder-decoder's decoder
@@ -868,6 +1118,15 @@ def attn_layers(cfg) -> int:
     if cfg.family == "encdec":
         return cfg.enc_layers + 2 * cfg.dec_layers
     return sum(k != "ssm" and k != "rec" for k in block_kinds(cfg))
+
+
+def decode_attn_layers(cfg) -> int:
+    """The layers that launch ``decode_attn`` once a decode step: every
+    attention layer, the encoder-decoder's decoder self-attention only
+    (its cross-attention and encoder take none)."""
+    if cfg.family == "encdec":
+        return cfg.dec_layers
+    return attn_layers(cfg)
 
 
 def model_inputs(cfg, gen, B: int, S: int) -> dict:
@@ -946,6 +1205,8 @@ def serve_main_path(cfg) -> tuple[dict, dict]:
 
     want = {part: {n: 0 for n in c} for part, c in launches.items()}
     want["prefill"]["flash_fwd"] = attn_layers(cfg)
+    want["decode"]["decode_attn"] = decode_attn_layers(cfg) \
+        * SLICE_DECODE_STEPS
     if launches != want:
         fail(f"{cfg.name} serving launches {launches}, want {want}")
     for part in launches:
@@ -1640,6 +1901,7 @@ def phase_moe_serve() -> dict:
 
 def _counters():
     from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import shard_pack as sp
@@ -1647,11 +1909,13 @@ def _counters():
             "flash_bwd_dkv": fa.BWD_DKV_LAUNCHES,
             "quantize": qz.QUANT_LAUNCHES, "dequantize": qz.DEQUANT_LAUNCHES,
             "checksum": ck.CHECKSUM_LAUNCHES, "shard_pack": sp.PACK_LAUNCHES,
-            "shard_unpack": sp.UNPACK_LAUNCHES}
+            "shard_unpack": sp.UNPACK_LAUNCHES,
+            "decode_attn": da.DECODE_ATTN_LAUNCHES}
 
 
 def _zero_counters() -> None:
     from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import shard_pack as sp
@@ -1660,6 +1924,9 @@ def _zero_counters() -> None:
         fa.FWD_ROUTE_LAUNCHES[route] = fa.BWD_ROUTE_LAUNCHES[route] = 0
     qz.QUANT_LAUNCHES = qz.DEQUANT_LAUNCHES = 0
     ck.CHECKSUM_LAUNCHES = sp.PACK_LAUNCHES = sp.UNPACK_LAUNCHES = 0
+    da.DECODE_ATTN_LAUNCHES = 0
+    for route in DECODE_ROUTES:
+        da.ROUTE_LAUNCHES[route] = 0
 
 
 def _routes() -> dict:
@@ -1813,7 +2080,7 @@ def phase_ckpt_train(device="cuda") -> dict:
             "flash_bwd_dkv": L * steps_run, "quantize": n_big * steps_run,
             "dequantize": n_big * steps_run,
             "checksum": n_leaves * (len(saves) + 1),
-            "shard_pack": 0, "shard_unpack": 0}
+            "shard_pack": 0, "shard_unpack": 0, "decode_attn": 0}
     timings = {}
     for t in mgr.ckpt.timings:
         rec = timings.setdefault(f"{t['op']}_{t['step']}", {})
@@ -2098,7 +2365,7 @@ def run_train(cfg, fp32_leaves: bool = False) -> dict:
     want = {"flash_fwd": 2 * n_attn * n, "flash_bwd_dq": n_attn * n,
             "flash_bwd_dkv": n_attn * n, "quantize": n_big * n,
             "dequantize": n_big * n, "checksum": 0, "shard_pack": 0,
-            "shard_unpack": 0}
+            "shard_unpack": 0, "decode_attn": 0}
     if launches != want:
         fail(f"{cfg.name} training launches {launches}, want {want}")
     _hold_wgmma_route(f"{cfg.name} training", launches, routes)
@@ -2777,6 +3044,7 @@ def main() -> int:
     fwd_train_err, bwd_err = phase_bwd_kernels()
     quant_err = phase_quant_kernels()
     storage_err = phase_storage_kernels()
+    decode_run = phase_decode_attention()
     torch.cuda.empty_cache()
     slice_run = phase_slice()
     print(json.dumps({"slice": slice_run, "card": card}))
@@ -2834,6 +3102,8 @@ def main() -> int:
     print(json.dumps({"encdec_kernel_times": et, "card": card}))
     vt = phase_vlm_kernel_times()
     print(json.dumps({"vlm_kernel_times": vt, "card": card}))
+    for name, r in phase_decode_attention_times().items():
+        decode_run[name].update(r)
     print(json.dumps({"ckpt_train": {
         k: v for k, v in ckpt_run.items()
         if k in ("result", "run_s", "check_s", "launches", "timings",
@@ -2945,7 +3215,25 @@ def main() -> int:
         "library_ms": st[name]["library_ms"]}
         for name, replaces in (
             ("shard_pack", "src/repro/kernels/shard_pack.py:27"),
-            ("shard_unpack", "src/repro/kernels/shard_pack.py:47"))]}
+            ("shard_unpack", "src/repro/kernels/shard_pack.py:47"))] + [{
+        "name": "decode_attn", "route": "cuda",
+        "source": csrc + "decode_attn.cu", "replaces": None,
+        "launches": sum(run["launches"]["decode"]["decode_attn"]
+                        for run in (slice_run, moe_serve_run,
+                                    hybrid_serve_run, encdec_serve_run,
+                                    vlm_serve_run)),
+        "max_abs_err": decode_run["max_abs_err"],
+        "ms": decode_run["chat_last"]["ms"],
+        "plain_ms": decode_run["chat_last"]["plain_ms"],
+        "bound_ms": decode_run["chat_last"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": decode_run["chat_last"]["library_ms"], **{
+            f"{key}_{name}": r[key]
+            for name, r in decode_run.items() if isinstance(r, dict)
+            for key in ("ms", "device_ms", "launches", "simt_device_ms",
+                        "plain_ms", "bound_ms", "splits", "library_ms",
+                        "library_device_ms", "library_launches",
+                        "library_max_abs_err", "library_attention")
+            if key in r}}]}
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

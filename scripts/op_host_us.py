@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Host cost of the ways a ``flash_fwd`` call can reach its kernel.
+"""Host cost of the ways a ``flash_fwd`` or ``decode_attn`` call can reach
+its kernel.
 
     PYTHONPATH=src python3 scripts/op_host_us.py [--iters 200]
 
@@ -8,10 +9,12 @@ causal), where the launch is most of the work, three ways: the wrapper
 itself; the port's op ``flash_fwd_op`` (a schema defined with
 ``torch.library.Library``, the wrapper its CPU and CUDA kernel, as the
 model reaches it); and a ``torch.library.custom_op`` around the same
-wrapper, the registration the port does not use.  Each is the least of two
-runs of ``--iters`` calls ending in a synchronise, taken in turns.  Prints
-the card's name and power limit and one JSON line of microseconds a call.
-Needs a CUDA card.
+wrapper, the registration the port does not use.  Then a small bf16
+``decode_attn`` (one row, one kv head, 64 slots, D = 128, rope on) two
+ways: its wrapper and its op ``decode_attn_op``, as ``attention_decode``
+reaches it.  Each is the least of two runs of ``--iters`` calls ending in
+a synchronise, taken in turns.  Prints the card's name and power limit and
+one JSON line of microseconds a call.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
 
     @torch.library.custom_op(
@@ -48,9 +52,18 @@ def main() -> None:
     k = torch.randn((1, 1, 128, 128), generator=gen,
                     device="cuda").to(torch.bfloat16)
     scale = 128 ** -0.5
+    dq = torch.randn((1, 1, 1, 128), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    dc = torch.randn((1, 64, 1, 128), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    dc2 = dc.clone()
     calls = {"wrapper": lambda: fa.flash_fwd(q, k, k, scale=scale),
              "port_op": lambda: fa.flash_fwd_op(q, k, k, True, 0, 0, scale),
-             "custom_op": lambda: custom_op(q, k, k, scale)}
+             "custom_op": lambda: custom_op(q, k, k, scale),
+             "decode_wrapper": lambda: da.decode_attn(
+                 dq, dq, dq, dc, dc2, 40, 1.0, 1e4, False),
+             "decode_port_op": lambda: da.decode_attn_op(
+                 dq, dq, dq, dc, dc2, 40, 1.0, 1e4, False)}
 
     def host_us(fn) -> float:
         fn()

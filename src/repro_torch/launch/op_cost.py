@@ -12,10 +12,14 @@ dispatches:
     where it can be, else charged nothing).  The reference counts every
     dot and convolution; the registry counts the matmul and convolution
     ops, and the kernels' custom ops (``repro_torch::flash_fwd``,
-    ``::flash_bwd``) by their own formulas, so a kernel is one unit of
-    cost and the ops its CPU twin runs inside it are never seen;
+    ``::flash_bwd``, ``::decode_attn``) by their own formulas, so a kernel
+    is one unit of cost and the ops its CPU twin runs inside it are never
+    seen;
   * bytes: each op that is not a view or an allocation reads its operands
-    and writes its result once (eager: no op fuses with its neighbours);
+    and writes its result once (eager: no op fuses with its neighbours),
+    except an op with its own byte formula (``_BYTE_FORMULAS``:
+    ``::decode_attn`` reads only the valid slots of the caches it is
+    handed and writes one);
   * peak live bytes: the storages the step creates, from the op that
     creates one to the moment its last reference goes (a finaliser on the
     storage object, which PyTorch keeps alive as long as the storage
@@ -40,6 +44,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
+from ..kernels.decode_attention import decode_attn_bytes
+
 _aten = torch.ops.aten
 # size and stride queries: no op runs, FlopCounterMode skips them too
 _METADATA = {_aten.sym_is_contiguous.default, _aten.is_contiguous.default,
@@ -60,6 +66,8 @@ _NO_TRAFFIC = {_aten.empty.memory_format, _aten.empty_strided.default,
 # factories that take a tensor for its shape only: they write their result
 _RESULT_ONLY = {_aten.zeros_like.default, _aten.ones_like.default,
                 _aten.full_like.default}
+# custom ops whose bytes are not their operands' and results' sizes
+_BYTE_FORMULAS = {torch.ops.repro_torch.decode_attn: decode_attn_bytes}
 
 
 def tensor_bytes(t: torch.Tensor) -> int:
@@ -133,7 +141,9 @@ class OpCost(TorchDispatchMode):
         if packet in flop_registry:
             flops = int(flop_registry[packet](*args, **kwargs, out_val=out))
         nbytes = 0
-        if not (func.is_view or func in _NO_TRAFFIC):
+        if packet in _BYTE_FORMULAS:
+            nbytes = _BYTE_FORMULAS[packet](*args, **kwargs)
+        elif not (func.is_view or func in _NO_TRAFFIC):
             nbytes = sum(tensor_bytes(t) for t in _tensors(out))
             if func not in _RESULT_ONLY:
                 nbytes += sum(tensor_bytes(t)

@@ -10,12 +10,15 @@ device, drawing nothing).  There is no mesh here, so
 """
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+# rope_freqs and gqa_scores_softmax_v are this module's names too, as in the
+# JAX package; they live below both the layers and the kernels' twins
+from ..kernels.attention_math import (gqa_scores_softmax_v, rope,
+                                      rope_freqs)
+from ..kernels.decode_attention import decode_attn_op
 from ..spans import span
 
 Params = dict
@@ -73,38 +76,12 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
 
 # --------------------------- rotary ---------------------------
 
-def rope_freqs(head_dim: int, pct: float, theta: float):
-    """Inverse frequencies as numpy float32 (as the JAX package computes
-    them), or None when nothing rotates."""
-    rot = int(head_dim * pct) // 2 * 2
-    if rot == 0:
-        return None
-    return 1.0 / (theta ** (np.arange(0, rot, 2, np.float32) / rot))
-
-
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, pct: float,
                theta: float) -> torch.Tensor:
     """x: (..., S, H, D); positions: (..., S) integer. Rotates the first
-    pct*D dims pairwise (half-split convention)."""
-    D = x.shape[-1]
-    inv = rope_freqs(D, pct, theta)
-    if inv is None:
-        return x
-    rot = inv.shape[0] * 2
-    inv = torch.from_numpy(inv).to(x.device)
-    ang = positions[..., :, None].float() * inv          # (..., S, rot/2)
-    cos = torch.cos(ang)[..., :, None, :]                # (..., S, 1, rot/2)
-    sin = torch.sin(ang)[..., :, None, :]
-    xr, xp = x[..., :rot], x[..., rot:]
-    x1, x2 = xr[..., : rot // 2], xr[..., rot // 2:]
-    if _NORM_BF16:
-        cos = cos.to(x.dtype)
-        sin = sin.to(x.dtype)
-        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin, xp],
-                         dim=-1)
-    y1 = x1.float() * cos - x2.float() * sin
-    y2 = x2.float() * cos + x1.float() * sin
-    return torch.cat([y1.to(x.dtype), y2.to(x.dtype), xp], dim=-1)
+    pct*D dims pairwise (half-split convention), in bf16 products where
+    ``set_norm_bf16`` is on (``kernels.attention_math.rope``)."""
+    return rope(x, positions, pct, theta, _NORM_BF16)
 
 
 # --------------------------- masks ---------------------------
@@ -144,22 +121,6 @@ def _split_heads(x, n_heads, head_dim):
     return x.reshape(*x.shape[:-1], n_heads, head_dim)
 
 
-def gqa_scores_softmax_v(q, k, v, mask, n_kv):
-    """q: (B,Sq,Hq,D), k/v: (B,Sk,Hkv,D). Returns (B,Sq,Hq,D).
-    Scores in fp32, divided by sqrt(D) after the product; probabilities
-    cast to q's dtype before the P.V product."""
-    B, Sq, Hq, D = q.shape
-    G = Hq // n_kv
-    qg = q.reshape(B, Sq, n_kv, G, D)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
-    scores = scores / math.sqrt(D)
-    if mask is not None:
-        scores = scores + mask
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
-    return out.reshape(B, Sq, Hq, D)
-
-
 def attention_decode(params: Params, x: torch.Tensor, cfg,
                      cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
                      n_heads: int):
@@ -170,29 +131,18 @@ def attention_decode(params: Params, x: torch.Tensor, cfg,
     Unlike the JAX function, the new k/v are written into ``cache_k`` and
     ``cache_v`` in place (slot ``pos % S_cache``): at full width a copy
     would move the whole cache every step.  The caches are still returned,
-    so the API matches."""
+    so the API matches.  Everything after the projections (rope, the slot
+    write, the attention over the valid slots) is one custom op,
+    ``repro_torch::decode_attn``: a kernel on the card, its plain twin
+    (``kernels.decode_attention.decode_attention_reference``) on the
+    CPU."""
     with span("decode.attention"):
-        B, one, d = x.shape
-        S_cache = cache_k.shape[1]
+        B = x.shape[0]
         q = _split_heads(x @ params["wq"], n_heads, cfg.head_dim)
         k = _split_heads(x @ params["wk"], cfg.n_kv_heads, cfg.head_dim)
         v = _split_heads(x @ params["wv"], cfg.n_kv_heads, cfg.head_dim)
-        posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-        q = apply_rope(q, posv, cfg.rotary_pct, cfg.rope_theta)
-        k = apply_rope(k, posv, cfg.rotary_pct, cfg.rope_theta)
-        slot = pos % S_cache
-        cache_k[:, slot:slot + 1] = k.to(cache_k.dtype)
-        cache_v[:, slot:slot + 1] = v.to(cache_v.dtype)
-        # Ring buffer: slots beyond `pos` are unwritten until the buffer
-        # wraps (SWA archs allocate cache_len == window, so wrapping IS the
-        # sliding window; RoPE is baked into cached k, and softmax is
-        # permutation-invariant over slots, so ring order is harmless).
-        idx = torch.arange(S_cache, device=x.device)
-        valid = (idx <= pos) | (pos >= S_cache)
-        mask = torch.where(valid, 0.0, -1e30).to(torch.float32)[
-            None, None, None]
-        out = gqa_scores_softmax_v(q, cache_k.to(q.dtype),
-                                   cache_v.to(q.dtype), mask, cfg.n_kv_heads)
+        out = decode_attn_op(q, k, v, cache_k, cache_v, pos,
+                             cfg.rotary_pct, cfg.rope_theta, _NORM_BF16)
         return out.reshape(B, 1, -1) @ params["wo"], cache_k, cache_v
 
 

@@ -45,6 +45,8 @@ UNCALLED = "never called by the reference"
 RENAMED = "done under another name"
 MEASURED = ("measured by the benchmark's chat cell and the serve.decode "
             "span")
+SHARED = ("shared with the kernels' plain twins: defined below both, "
+          "imported into models/layers.py")
 
 # "module.py" (a whole module with no port file) or "module.py:name" ->
 # (reason, counterpart): "port_module.py:name", a file under the port, or
@@ -133,6 +135,10 @@ NO_COUNTERPART = {
     "models/layers.py:_rms_norm_bf16": (UNCALLED, None),
     "models/layers.py:_rms_fwd": (UNCALLED, None),
     "models/layers.py:_rms_bwd": (UNCALLED, None),
+    "models/layers.py:rope_freqs":
+        (SHARED, "kernels/attention_math.py:rope_freqs"),
+    "models/layers.py:gqa_scores_softmax_v":
+        (SHARED, "kernels/attention_math.py:gqa_scores_softmax_v"),
 
     "models/attention_flash.py:_attend_block":
         (RENAMED, "models/attention_flash.py:_scores"),
@@ -347,7 +353,7 @@ def test_port_defines_every_reference_name(module):
 def test_no_counterpart_table_matches_the_reference():
     assert stale_entries(REF, PORT, NO_COUNTERPART) == []
     assert {r for r, _ in NO_COUNTERPART.values()} \
-        == {PALLAS, ORACLE, HLO, GSPMD, UNCALLED, RENAMED, MEASURED}
+        == {PALLAS, ORACLE, HLO, GSPMD, UNCALLED, RENAMED, MEASURED, SHARED}
 
 
 def test_every_pallas_call_has_a_kernel():

@@ -781,3 +781,182 @@ def test_checkpoint_round_trip_on_the_card(cuda):
     assert ck.CHECKSUM_LAUNCHES == before + 6
     for k, v in want.items():
         assert back[k].device.type == "cuda" and torch.equal(back[k], v)
+
+
+# ---------------------------- decode attention ----------------------------
+
+# (B, S_cache, Hq, n_kv, D, rotary_pct, rope_theta, pos): every family's
+# full-width decode shape (the serving slice's 4 rows, prompts of 1024 and
+# 32 slots to spare; recurrentgemma's ring of 2048 past its wrap), chat's
+# (16 x 1152 at the first and last traced positions), and small ones.
+DECODE_CASES = [
+    (4, 1056, 32, 32, 128, 1.0, 1e4, 1024),   # deepseek-7b
+    (16, 1152, 32, 32, 128, 1.0, 1e4, 1024),  # chat, first traced step
+    (16, 1152, 32, 32, 128, 1.0, 1e4, 1055),  # chat, last traced step
+    (4, 1056, 32, 2, 128, 0.5, 1e4, 1040),    # chatglm3: G 16, rotary 0.5
+    (4, 1056, 32, 32, 80, 0.25, 1e4, 1030),   # stablelm: D 80, rotary 0.25
+    (4, 1056, 32, 8, 80, 1.0, 1e4, 1050),     # h2o-danube: D 80, G 4
+    (4, 1056, 64, 4, 128, 1.0, 1e6, 1055),    # qwen3-moe: G 16
+    (4, 1056, 56, 8, 128, 1.0, 1e4, 1025),    # arctic: G 7
+    (4, 1312, 8, 1, 256, 1.0, 1e4, 1280),     # paligemma: MQA G 8, D 256
+    (4, 2048, 16, 1, 256, 1.0, 1e4, 2100),    # recurrentgemma: wrapped ring
+    (4, 544, 16, 16, 64, 0.0, 1e4, 512),      # seamless decoder: no rotary
+    (2, 10, 4, 2, 16, 1.0, 1e4, 3),           # smoke: D 16
+    (2, 10, 4, 2, 16, 0.5, 1e4, 25),          # smoke, wrapped
+    (3, 300, 12, 4, 64, 1.0, 1e4, 0),         # the first position, G 3
+    (1, 5000, 8, 1, 128, 1.0, 1e4, 4999),     # many splits, G 8
+]
+
+
+def _decode_inputs(case, dtype, device):
+    B, S, Hq, n_kv, D = case[:5]
+    gen = torch.Generator(device=device).manual_seed(S * D + Hq)
+    mk = lambda *s: torch.randn(s, generator=gen, device=device).to(dtype)
+    return (mk(B, 1, Hq, D), mk(B, 1, n_kv, D), mk(B, 1, n_kv, D),
+            mk(B, S, n_kv, D), mk(B, S, n_kv, D))
+
+
+def _ulps(a, b):
+    """Units in the last place between two same-dtype tensors of one sign."""
+    it = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return (a.view(it).long() - b.view(it).long()).abs()
+
+
+@pytest.mark.parametrize("rope_bf16", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_attn_kernel_matches_plain_version(cuda, case, dtype,
+                                                  rope_bf16):
+    """The output within the flash forward's tolerance of the twin run on
+    the card in the same dtype; the v slot bit-equal, the k slot within one
+    ulp (rope's cos/sin); every other slot untouched; one launch on the
+    route the shape takes."""
+    from repro_torch.kernels import decode_attention as da
+    B, S, Hq, n_kv, D, pct, theta, pos = case
+    q, k, v, ck, cv = _decode_inputs(case, dtype, cuda)
+    ck0, cv0 = ck.clone(), cv.clone()
+    rk, rv = ck.clone(), cv.clone()
+    route = da._route(dtype, Hq // n_kv)
+    before, routes = da.DECODE_ATTN_LAUNCHES, dict(da.ROUTE_LAUNCHES)
+    out = da.decode_attn(q, k, v, ck, cv, pos, pct, theta, rope_bf16)
+    torch.cuda.synchronize()
+    assert da.DECODE_ATTN_LAUNCHES == before + 1
+    assert {r: da.ROUTE_LAUNCHES[r] - routes[r] for r in routes} \
+        == {r: int(r == route) for r in routes}
+    want = da.decode_attention_reference(q, k, v, rk, rv, pos, pct, theta,
+                                         rope_bf16)
+    assert out.shape == want.shape and out.dtype == dtype
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    slot = pos % S
+    assert torch.equal(cv[:, slot], rv[:, slot])
+    assert int(_ulps(ck[:, slot], rk[:, slot]).max()) <= 1
+    keep = torch.ones(S, dtype=torch.bool, device=cuda)
+    keep[slot] = False
+    assert torch.equal(ck[:, keep], ck0[:, keep])
+    assert torch.equal(cv[:, keep], cv0[:, keep])
+
+
+def test_decode_attn_is_bit_equal_on_a_repeat(cuda):
+    """No atomics: the same inputs give the same bits, split or not."""
+    from repro_torch.kernels import decode_attention as da
+    for case in ((4, 2048, 16, 1, 256, 1.0, 1e4, 2100),
+                 (16, 1152, 32, 32, 128, 1.0, 1e4, 1055)):
+        q, k, v, ck, cv = _decode_inputs(case, torch.bfloat16, cuda)
+        a = da.decode_attn(q, k, v, ck, cv, case[-1], case[5], case[6],
+                           False)
+        b = da.decode_attn(q, k, v, ck, cv, case[-1], case[5], case[6],
+                           False)
+        assert torch.equal(a, b)
+
+
+def test_decode_attn_refuses_what_it_cannot_take(cuda):
+    from repro_torch.kernels import decode_attention as da
+    q, k, v, ck, cv = _decode_inputs((2, 64, 4, 2, 128, 1.0, 1e4, 5),
+                                     torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attn(q[..., ::2], k[..., ::2], v[..., ::2], ck[..., ::2],
+                       cv[..., ::2], 5, 1.0, 1e4, False)
+    q2, k2, v2, ck2, cv2 = _decode_inputs((2, 64, 34, 2, 128, 1.0, 1e4, 5),
+                                          torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="groups"):
+        da.decode_attn(q2, k2, v2, ck2, cv2, 5, 1.0, 1e4, False)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_decode_on_the_card_launches_the_kernel(cuda, dtype):
+    """deepseek-7b's smoke prefill and 3 decode steps on the card against
+    the CPU from the same params and tokens (fp32: summation order, 1e-4;
+    bf16, where the two devices' matrix products round apart: 2e-2 of the
+    norm, chip_smoke.py's HIDDEN_REL_TOL), with exactly one
+    ``decode_attn`` a layer a step."""
+    from repro_torch.configs import ARCHS, smoke_variant
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import (forward_decode, forward_prefill,
+                                    init_model)
+    cfg = dataclasses.replace(smoke_variant(ARCHS["deepseek-7b"]),
+                              attn_impl="flash_pallas", param_dtype=dtype)
+    params = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 27),
+                           generator=torch.Generator().manual_seed(1))
+    to = lambda t: {k: to(v) for k, v in t.items()} \
+        if isinstance(t, dict) else t.to(cuda)
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", to(params))):
+        with torch.no_grad():
+            _, c = forward_prefill(p, cfg, {"tokens": tokens[:, :24].to(dev)},
+                                   pad_to=28)
+            before = da.DECODE_ATTN_LAUNCHES
+            hs = []
+            for t in range(3):
+                h, c = forward_decode(p, cfg, c, tokens[:, 24 + t:25 + t]
+                                      .to(dev), 24 + t)
+                hs.append(h)
+        out[dev] = (hs, c, da.DECODE_ATTN_LAUNCHES - before)
+    hs, c, n = out["cuda"]
+    assert out["cpu"][2] == 0 and n == 3 * cfg.n_layers
+    for got, want in ((torch.stack(hs), torch.stack(out["cpu"][0])),
+                      *((c[k], out["cpu"][1][k]) for k in c)):
+        got, want = got.cpu().float(), want.float()
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        else:
+            assert float((got - want).norm() / want.norm()) <= 2e-2
+
+
+def test_traced_decode_attention_copies_and_waits_for_nothing(cuda):
+    """Under the profiler, inside every ``repro_torch.decode.attention``
+    span of a decode step: launches, but no host-to-device copy and no
+    synchronisation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ARCHS, smoke_variant
+    from repro_torch.models import (forward_decode, forward_prefill,
+                                    init_model)
+    cfg = dataclasses.replace(smoke_variant(ARCHS["deepseek-7b"]),
+                              attn_impl="flash_pallas",
+                              param_dtype="bfloat16")
+    params = init_model(torch.Generator(device=cuda).manual_seed(0), cfg,
+                        device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 17), device=cuda)
+    with torch.no_grad():
+        _, c = forward_prefill(params, cfg, {"tokens": tokens[:, :16]},
+                               pad_to=20)
+        forward_decode(params, cfg, c, tokens[:, 16:], 16)   # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            forward_decode(params, cfg, c, tokens[:, 16:], 17)
+            torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CPU]
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == "repro_torch.decode.attention"]
+    assert len(spans) == cfg.n_layers
+    inside = lambda e: any(s <= e.time_range.start and e.time_range.end <= t
+                           for s, t in spans)
+    names = [e.name for e in events if inside(e)]
+    assert any("LaunchKernel" in n for n in names), sorted(set(names))
+    bad = [n for n in names if "Memcpy" in n or "Synchronize" in n
+           or "memcpy" in n]
+    assert bad == [], bad
