@@ -19,18 +19,7 @@ from . import kind_serve_rounds, kind_train, plain, weights
 
 
 def _flat(cell, params) -> dict:
-    return {p: weights.get(params, p) for p, _, _ in cell.layout}
-
-
-def _nested(flat: dict) -> dict:
-    tree: dict = {}
-    for path, leaf in flat.items():
-        *keys, last = path.split("/")
-        node = tree
-        for k in keys:
-            node = node.setdefault(k, {})
-        node[last] = leaf
-    return tree
+    return {p: weights.get(params, p) for p, *_ in cell.layout}
 
 
 def train_control(cell, prec: str = "fp8"):
@@ -55,7 +44,7 @@ def train_control(cell, prec: str = "fp8"):
             if comp:
                 plain.compress_(grads)
             plain.opt_update_(opt, grads, st, flat)
-            state = {k: _nested(v) for k, v in st.items()
+            state = {k: weights.nested(v) for k, v in st.items()
                      if isinstance(v, dict)}
             return params, state, {"loss": loss}
         return step

@@ -6,7 +6,13 @@ Frozen copies, kept here so that a change to the program cannot move them:
 ``bound`` is ``chip_smoke._bound``, the flash bounds are the products and
 bytes ``chip_smoke.attn_times`` counts, and ``train_model_flops`` is
 ``chip_smoke.train_model_flops`` for the dense and encoder-decoder families,
-with the parameter counts taken from the benchmark's own layout.
+with the parameter counts taken from the benchmark's own layout.  A
+configuration whose step those two formulas would miscount (a MoE touches
+k of its E experts a token; a hybrid attends in only some layers) gives its
+own ``prefill_flops`` / ``train_model_flops`` in ``configs/<config>.py``,
+and ``model_flops`` takes that.  ``decode_attn_bound`` bounds the port's
+decode-attention call (``decode_attn_bytes`` in
+``repro_torch/kernels/decode_attention.py`` counts the same bytes).
 """
 from __future__ import annotations
 
@@ -64,7 +70,7 @@ def matmul_params(layout, spec) -> dict:
     token embedding (a lookup, no product) and, for the encoder-decoder,
     the encoder's and the cross-attention's k/v projections."""
     out = {"total": 0, "tok": 0, "enc": 0, "xkv": 0, "final_norm": 0}
-    for path, shape, _init in layout:
+    for path, shape, *_ in layout:
         n = math.prod(shape)
         out["total"] += n
         if path in ("embed/tok", "embed/final_norm"):
@@ -111,3 +117,31 @@ def prefill_flops(layout, spec, B: int, S: int) -> float:
     return (2.0 * body * B * S + 2.0 * head * B
             + 4.0 * B * spec["heads"] * spec["head_dim"] * pairs
             * spec["layers"])
+
+
+def model_flops(refmod, name: str, layout, spec, B: int, S: int) -> float:
+    """``name`` (``prefill_flops`` or ``train_model_flops``) of B x S: the
+    configuration's own count, ``refmod.<name>(spec, B, S)``, where its
+    reference module defines one, else this module's formula."""
+    own = getattr(refmod, name, None)
+    if own is not None:
+        return float(own(spec, B, S))
+    return globals()[name](layout, spec, B, S)
+
+
+def decode_attn_bytes(B: int, Hq: int, Hkv: int, D: int, pos: int,
+                      slots: int) -> int:
+    """The bf16 bytes one decode-attention call at position ``pos`` must
+    move, over a cache of ``slots`` slots: q read and the output written
+    (B Hq D each), the new k/v row written (2 B Hkv D) and every valid K/V
+    row read once (2 B Hkv D each of min(pos + 1, slots))."""
+    row = B * Hkv * D * 2
+    return 2 * B * Hq * D * 2 + 2 * row + 2 * row * min(pos + 1, slots)
+
+
+def decode_attn_bound(B: int, Hq: int, Hkv: int, D: int, pos: int,
+                      slots: int) -> float:
+    """The least seconds of one decode-attention call: q.k and p.v over
+    the valid slots (2 x 2 B Hq D a slot) against its bytes."""
+    flops = 4.0 * B * Hq * D * min(pos + 1, slots)
+    return bound(flops, decode_attn_bytes(B, Hq, Hkv, D, pos, slots))

@@ -7,7 +7,9 @@ under ``cardbench/`` in a file of its own:
 
 - ``configs/<config>.json``: the configuration as it is run, and
   ``configs/<config>.py``: its plain reference (``spec``, ``layout``,
-  ``input_shapes``, ``attention_calls``, ``Model``);
+  ``input_shapes``, ``attention_calls``, ``Model``, and where
+  ``counts``' formulas miss the model its own ``prefill_flops`` /
+  ``train_model_flops``);
 - ``traffic/<traffic>.json``: the mix's parameters (``cbench.traffic``);
 - ``cells/<workload>.json``: the limits of the numbers that decide
   ``correct``, with the readings they were set from;
@@ -59,6 +61,7 @@ class Cell:
         self.bench, self.work = bench, cells[workload]
         here = root / "cardbench"
         name = self.work["config"]
+        entry = next(c for c in bench["configs"] if c["name"] == name)
         self.cfg = json.loads((here / "configs" / f"{name}.json").read_text())
         self.refmod = load_module(here / "configs" / f"{name}.py",
                                   "cardbench_config_" + _ident(name))
@@ -78,7 +81,8 @@ class Cell:
         self.step_wrap = overrides.get("step_wrap")
         from . import program
         self.mc = program.model_config(self.cfg, self.spec,
-                                       check_arch="config" not in overrides)
+                                       check_arch="config" not in overrides,
+                                       reduced=entry["reduced"])
         program.check_layout(self.mc, self.layout)
         self.here = here
 

@@ -1,5 +1,7 @@
 """The ``serve_rounds`` traffic kind: a closed loop of serving rounds through
-the program's ``make_prefill_step`` and ``make_decode_step``.
+the program's ``make_prefill_step`` and ``make_decode_step``, for any
+configuration whose inputs are tokens alone (every decoder-only family of
+the port).
 
 Each round admits ``batch`` requests, prefills their prompts as one batch
 into a cache of ``pad_to`` slots, takes the greedy first token from the
@@ -54,8 +56,7 @@ def reference_gaps(ctx, sample, ref_prec: str | None = None) -> float:
     control)."""
     plain.exact()
     dev = ctx.device
-    params = {p: weights.make_leaf(ctx.seed, i, s, init, dev)
-              for i, (p, s, init) in enumerate(ctx.layout)}
+    params = weights.make_flat(ctx.seed, ctx.layout, dev)
     ref = ctx.refmod.Model(ctx.spec, "fp32")
     low = ctx.refmod.Model(ctx.spec, ref_prec) if ref_prec else None
     widest = 0.0
@@ -87,9 +88,13 @@ def program_state(ctx):
     """The program's params and serving steps, one round's shapes warmed
     (a prefill and two decode steps)."""
     from repro_torch.serve import make_decode_step, make_prefill_step
-    if ctx.spec["family"] != "dense":
-        raise ValueError("serve_rounds drives decoder-only configurations")
     mix = ctx.mix
+    inputs = ctx.refmod.input_shapes(ctx.spec, mix["batch"],
+                                     mix["prompt_len"])
+    if set(inputs) != {"tokens"}:
+        raise ValueError(f"serve_rounds feeds prompts of tokens alone; "
+                         f"{ctx.work['config']} also takes "
+                         f"{sorted(set(inputs) - {'tokens'})}")
     ctx.gen = traffic.Generator(mix, ctx.seed, ctx.spec["vocab"], ctx.device)
     params = weights.make_params(ctx.seed, ctx.layout, ctx.device)
     ctx.mark("weights")
@@ -149,8 +154,9 @@ def run(ctx) -> dict:
            "attention_calls": ctx.refmod.attention_calls(ctx.spec, Bq, P),
            "window": {"rounds": w["rounds"], "seconds": w["seconds"],
                       "prefill_seconds": w["prefill_s"],
-                      "prefill_flops": counts.prefill_flops(
-                          ctx.layout, ctx.spec, Bq, P)}}
+                      "prefill_flops": counts.model_flops(
+                          ctx.refmod, "prefill_flops", ctx.layout, ctx.spec,
+                          Bq, P)}}
 
     if ctx.trace:
         def traced():

@@ -22,7 +22,8 @@ from . import counts, hostwatch, plain, program, trace, traffic, weights
 B1 = 0.9        # AdamW's first-moment decay, the program's default
 
 
-def program_grad_norms(state: dict, layout, optimizer: str) -> dict:
+def program_grad_norms(state: dict, layout, optimizer: str,
+                       stack_keys=weights.STACKS) -> dict:
     """By part, the norm of the gradient the optimizer took at step 1, from
     its state: AdamW's m = (1 - b1) g; Adafactor's second moments, whose
     factored row means (or unfactored squares) times (1 - beta2) add up
@@ -30,30 +31,33 @@ def program_grad_norms(state: dict, layout, optimizer: str) -> dict:
     out = {}
     # 1 - beta2 at step 1, in fp32 as the program computes it
     one_minus = float(1.0 - (1.0 - (torch.tensor(2.0) ** -0.8)))
-    for path, shape, _init in layout:
+    for path, shape, *_ in layout:
+        parts = weights.slices(path, shape, stack_keys)
         if optimizer == "adamw":
             m = weights.get(state["m"], path)
-            for name, i in weights.slices(path, shape):
+            for name, i in parts:
                 out[name] = float(torch.linalg.vector_norm(m[i])) / (1 - B1)
             continue
         vr = weights.get(state["vr"], path)
         fac = len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
         cols = shape[-1] if fac else 1
-        for name, i in weights.slices(path, shape):
+        for name, i in parts:
             out[name] = math.sqrt(float(vr[i].double().sum()) * cols
                                   / one_minus)
     return out
 
 
-def change_norms(params, seed: int, layout, device) -> dict:
+def change_norms(params, seed: int, layout, device,
+                 stack_keys=weights.STACKS) -> dict:
     """By part, the norm of each param's change since the weights were
     made (made again from the seed, one leaf at a time)."""
     out = {}
-    for index, (path, shape, init) in enumerate(layout):
-        p0 = weights.make_leaf(seed, index, shape, init, device)
+    for index, item in enumerate(layout):
+        path, shape, init, dtype = weights.entry(item)
+        p0 = weights.make_leaf(seed, index, shape, init, device, dtype)
         p = params[path] if isinstance(params, dict) and path in params \
             else weights.get(params, path)
-        for name, i in weights.slices(path, shape):
+        for name, i in weights.slices(path, shape, stack_keys):
             out[name] = float(torch.linalg.vector_norm(
                 p[i].float() - p0[i].float()))
         del p0
@@ -105,13 +109,14 @@ def reference_readings(ctx) -> dict:
     over the mix's first steps, from the seed's weights and rows."""
     plain.exact()
     dev = ctx.device
-    params = {p: weights.make_leaf(ctx.seed, i, s, init, dev)
-              for i, (p, s, init) in enumerate(ctx.layout)}
+    params = weights.make_flat(ctx.seed, ctx.layout, dev)
     model = ctx.refmod.Model(ctx.spec, "fp32")
+    stack_keys = weights.stacks(ctx.spec)
     r = plain.train_reference(model, params, ctx.layout, ctx.batches,
                               ctx.mix["ref_steps"], ctx.spec["optimizer"],
-                              ctx.spec["grad_compression"])
-    r["change_norms"] = change_norms(params, ctx.seed, ctx.layout, dev)
+                              ctx.spec["grad_compression"], stack_keys)
+    r["change_norms"] = change_norms(params, ctx.seed, ctx.layout, dev,
+                                     stack_keys)
     del params
     ctx.free()
     return r
@@ -127,18 +132,20 @@ def program_setup(ctx, step_wrap=None):
     ctx.mark("weights")
     if step_wrap is not None:
         step = step_wrap(step)
+    stack_keys = weights.stacks(ctx.spec)
     losses, grad_norms = [], None
     for k in range(ctx.mix["ref_steps"]):
         params, state, m = step(params, state, ctx.batches(k))
         losses.append(float(m["loss"]))
         if k == 0:
             grad_norms = program_grad_norms(state, ctx.layout,
-                                            ctx.spec["optimizer"])
+                                            ctx.spec["optimizer"],
+                                            stack_keys)
             ctx.mark("first_step")
     ctx.mark("steps")
     readings = {"losses": losses, "grad_norms": grad_norms,
                 "change_norms": change_norms(params, ctx.seed, ctx.layout,
-                                             ctx.device)}
+                                             ctx.device, stack_keys)}
     return step, params, state, readings
 
 
@@ -172,7 +179,8 @@ def run(ctx) -> dict:
     window_s = time.perf_counter() - t0
     host = watch.stop(marks)
     peak = ctx.memory_peak()
-    flops = counts.train_model_flops(ctx.layout, ctx.spec, B, S)
+    flops = counts.model_flops(ctx.refmod, "train_model_flops", ctx.layout,
+                               ctx.spec, B, S)
     rec = {"kind": "train", "spec": ctx.spec, "mix": mix,
            "layout": ctx.layout, "attention_calls":
            ctx.refmod.attention_calls(ctx.spec, B, S),

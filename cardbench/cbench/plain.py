@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from .weights import STACKS, slices
+
 FP8 = {"e4m3": (torch.float8_e4m3fn, 448.0), "e5m2": (torch.float8_e5m2,
                                                      57344.0)}
 
@@ -297,19 +299,19 @@ def opt_update_(name: str, grads: dict, st: dict, params: dict, lr=3e-4,
             p[i] = (pf - lr * (m[i].float() + wd * pf)).to(p.dtype)
 
 
-def slice_norms(tree: dict, layout) -> dict:
+def slice_norms(tree: dict, layout, stack_keys=STACKS) -> dict:
     """The norm of each part a leaf is compared by (``weights.slices``)."""
-    from .weights import slices
     out = {}
-    for path, shape, _init in layout:
+    for path, shape, *_ in layout:
         t = tree[path]
-        for name, i in slices(path, shape):
+        for name, i in slices(path, shape, stack_keys):
             out[name] = float(torch.linalg.vector_norm(t[i].float()))
     return out
 
 
 def train_reference(model, params: dict, layout, batches, steps: int,
-                    optimizer: str, compression: bool) -> dict:
+                    optimizer: str, compression: bool,
+                    stack_keys=STACKS) -> dict:
     """``steps`` reference training steps from ``params`` (path -> bf16
     leaf, updated in place) on ``batches(k)``: each step's loss, the first
     gradient as the optimizer gets it (clipped, compressed) by part."""
@@ -322,7 +324,7 @@ def train_reference(model, params: dict, layout, batches, steps: int,
         if compression:
             compress_(grads)
         if k == 0:
-            grad_norms = slice_norms(grads, layout)
+            grad_norms = slice_norms(grads, layout, stack_keys)
         opt_update_(optimizer, grads, st, params)
         del grads
     return {"losses": losses, "grad_norms": grad_norms}

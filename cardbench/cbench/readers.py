@@ -64,3 +64,45 @@ def elementwise_ms(rec):
     s = sum(cats.get(c, 0.0) for c in ("elementwise_other", "copy_cast",
                                        "reduce"))
     return 1e3 * s / tr["info"]["steps"]
+
+
+def span_device(rec: dict, name: str):
+    """(launches, device seconds) of the traced sub-window's kernels
+    launched inside the program's span ``name``, nested spans included
+    (``trace.by_span``'s paths that hold it).  None where the trace holds
+    no such span."""
+    tr = rec.get("trace")
+    if not tr or "by_span" not in tr:
+        return None
+    got = [v for k, v in tr["by_span"].items() if name in k.split("/")]
+    if not got:
+        return None
+    return (sum(v["launches"] for v in got),
+            sum(v["device_s"] for v in got))
+
+
+def decode_attn_share(rec: dict):
+    """The decode attention's share of its bound over the traced decode
+    steps, in %: the bound of every call the program counted (the cell's
+    batch, q and k/v heads and head size, at each traced step's position,
+    ``counts.decode_attn_bound``) over the device time of the kernels
+    whose function names start ``decode_attn``.  None where no such kernel
+    ran, the program counted no call, or the count is not one for each
+    attention call of the cell's forward (``attention_calls``: its
+    attention layers) a traced decode step."""
+    tr = rec.get("trace")
+    if rec["kind"] != "serve" or not tr:
+        return None
+    steps = tr["info"]["decode_steps"]
+    calls = tr["counters"].get("decode_attn_calls")
+    layers = sum(k[-1] for k in rec["attention_calls"])
+    seconds = sum(v for k, v in tr["by_name_s"].items()
+                  if kernel_function(k).startswith("decode_attn"))
+    if seconds <= 0 or not calls or calls != layers * steps:
+        return None
+    s, mix = rec["spec"], rec["mix"]
+    P = mix["prompt_len"]
+    per_layer = sum(counts.decode_attn_bound(
+        mix["batch"], s["heads"], s["kv_heads"], s["head_dim"], P + j,
+        mix["pad_to"]) for j in range(steps))
+    return 100.0 * layers * per_layer / seconds

@@ -6,8 +6,14 @@ Busy time is the union of the device's operation intervals (kernels,
 copies, fills); the idle share is 1 - busy / the host clock's span of the
 sub-window.  Each device operation is attributed to the innermost range
 named ``cardbench.<phase>`` that the benchmark opened around its call
-into the program.  An idle gap of the device is named by what the host was
-doing in its middle: the innermost host event then running.
+into the program (``by_range``), and apart from that to the program's own
+spans, ``repro_torch.<span>`` (``by_span``): keyed by the path of spans
+from the outermost to the innermost one that holds its launch
+(``serve.decode/decode.attention``), so that each operation counts once,
+in its innermost span, and a span's whole time is the sum over the paths
+that hold it (``readers.span_device``).  Operations outside every range
+or span go under ``other``.  An idle gap of the device is named by what
+the host was doing in its middle: the innermost host event then running.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ import time
 from collections import defaultdict
 
 RANGE = "cardbench."
+SPAN = "repro_torch."      # the program's spans (``repro_torch.spans``)
 
 # the kernel categories of scripts/profile_slice.py, frozen
 CATEGORIES = (
@@ -91,6 +98,27 @@ def name_gaps(gap_list, cpu_events) -> dict:
     return out
 
 
+def range_key(event) -> str:
+    """The innermost ``cardbench.`` range holding a host event, or
+    ``other``."""
+    p = event
+    while p is not None and not p.name.startswith(RANGE):
+        p = p.cpu_parent
+    return p.name[len(RANGE):] if p is not None else "other"
+
+
+def span_key(event) -> str:
+    """The path of the program's spans holding a host event, outermost
+    first, joined by ``/``; ``other`` outside every span."""
+    names = []
+    p = event
+    while p is not None:
+        if p.name.startswith(SPAN):
+            names.append(p.name[len(SPAN):])
+        p = p.cpu_parent
+    return "/".join(reversed(names)) or "other"
+
+
 def run_traced(fn) -> dict:
     """Run ``fn`` (whole steps or rounds, ending in work queued on the
     card) under the profiler; -> the record the readers take."""
@@ -107,6 +135,7 @@ def run_traced(fn) -> dict:
         wall = time.perf_counter() - t0
     device, cpu = [], []
     by_range = defaultdict(lambda: {"launches": 0, "device_s": 0.0})
+    by_span = defaultdict(lambda: {"launches": 0, "device_s": 0.0})
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             if not e.is_user_annotation and not e.name.startswith(RANGE):
@@ -116,12 +145,10 @@ def run_traced(fn) -> dict:
         cpu.append((e.name, e.time_range.start, e.time_range.end, e.thread))
         if not e.kernels:
             continue
-        p = e
-        while p is not None and not p.name.startswith(RANGE):
-            p = p.cpu_parent
-        key = p.name[len(RANGE):] if p is not None else "other"
-        by_range[key]["launches"] += len(e.kernels)
-        by_range[key]["device_s"] += sum(k.duration for k in e.kernels) / 1e6
+        seconds = sum(k.duration for k in e.kernels) / 1e6
+        for table, key in ((by_range, range_key(e)), (by_span, span_key(e))):
+            table[key]["launches"] += len(e.kernels)
+            table[key]["device_s"] += seconds
     if not device:
         raise RuntimeError("the trace holds no device operation")
     intervals = [(s, e) for _, s, e in device]
@@ -135,6 +162,7 @@ def run_traced(fn) -> dict:
                      sorted(d.items(), key=lambda kv: -kv[1])[:10]]
     return {"wall_s": wall, "busy_s": busy, "launches": len(device),
             "by_category_s": dict(by_cat), "by_name_s": dict(by_name),
-            "by_range": dict(by_range), "info": info,
+            "by_range": dict(by_range), "by_span": dict(by_span),
+            "info": info,
             "breakdown": {"device_ops": top(by_name),
                           "idle_gaps": top(idle)}}

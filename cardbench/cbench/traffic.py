@@ -32,7 +32,7 @@ def load(root: Path, name: str) -> dict:
     """A mix's parameters; its ``kind`` names the module that runs it,
     ``cbench/kind_<kind>.py``."""
     mix = json.loads((root / "traffic" / f"{name}.json").read_text())
-    if not (root / "cbench" / f"kind_{mix.get('kind')}.py").is_file():
+    if not (Path(__file__).parent / f"kind_{mix.get('kind')}.py").is_file():
         raise ValueError(f"traffic {name}: no runner for kind "
                          f"{mix.get('kind')!r}")
     return mix
