@@ -443,6 +443,12 @@ DECODE_CASES = {
 }
 # the flash forward's limits (TOL's "out")
 DECODE_TOL = {"float32": 3e-4, "bfloat16": 1e-2}
+# granite-4.0-h-small's decode attention (phase_decode_attention_scale):
+# the chat cell's 16 rows over 1152 slots, 32 q / 8 kv heads of 128, no
+# rope, softmax scale 1/128, at its first and last decode positions
+GRANITE_DECODE = {"granite_first": (16, 1152, 32, 8, 128, 0.0, 1e4, 1024),
+                  "granite_last": (16, 1152, 32, 8, 128, 0.0, 1e4, 1151)}
+GRANITE_SCALE = 1 / 128
 
 
 def fail(msg: str) -> None:
@@ -1056,6 +1062,64 @@ def phase_decode_attention() -> dict:
     _zero_counters()
     torch.cuda.empty_cache()
     out["max_abs_err"] = worst
+    return out
+
+
+def phase_decode_attention_scale(device_times: bool = False) -> dict:
+    """The decode-attention kernel at granite-4.0-h-small's shapes
+    (GRANITE_DECODE) with its softmax scale (GRANITE_SCALE) against the
+    twin at that scale, bf16 and fp32 (DECODE_TOL), the new k/v in their
+    slot; the default scale's twin must miss it.  In bf16 its time (CUDA
+    events) against the byte bound, and with ``device_times`` the
+    profiler's device ms and share of the bound (run that late, as
+    ``phase_decode_attention_times`` is)."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    out = {}
+    for name, case in GRANITE_DECODE.items():
+        B, S, Hq, n_kv, D, pct, theta, pos = case
+        r = {"case": list(case), "scale": GRANITE_SCALE}
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            q, k, v, ck, cv = _decode_inputs(case, dtype)
+            ck0, cv0 = ck.clone(), cv.clone()
+            call = lambda: da.decode_attn(q, k, v, ck, cv, pos, pct, theta,
+                                          False, GRANITE_SCALE)
+            got = call()
+            torch.cuda.synchronize()
+            want = da.decode_attention_reference(q, k, v, ck0.clone(),
+                                                 cv0.clone(), pos, pct, theta,
+                                                 False, GRANITE_SCALE)
+            default = da.decode_attention_reference(q, k, v, ck0, cv0, pos,
+                                                    pct, theta, False)
+            err = float((got.float() - want.float()).abs().max())
+            r[dn] = {"route": da._route(dtype, Hq // n_kv),
+                     "max_abs_err": err,
+                     "default_scale_gap": float(
+                         (default.float() - want.float()).abs().max())}
+            if not torch.allclose(got.float(), want.float(),
+                                  rtol=DECODE_TOL[dn], atol=DECODE_TOL[dn]):
+                fail(f"decode_attn {name} {dn} at scale {GRANITE_SCALE}: "
+                     f"max |error| {err}")
+            if r[dn]["default_scale_gap"] < 10 * DECODE_TOL[dn]:
+                fail(f"decode_attn {name} {dn}: the set scale is not taken")
+            if not (torch.equal(ck[:, pos], k[:, 0])
+                    and torch.equal(cv[:, pos], v[:, 0])):
+                fail(f"decode_attn {name} {dn}: the slot differs from k/v")
+            if dtype == torch.bfloat16:
+                bound = da.decode_attn_bytes(q, k, v, ck, cv, pos) \
+                    / HBM_BYTES_PER_S * 1e3
+                r["bound_ms"] = bound
+                r["ms"] = cuda_ms(call, iters=50)
+                if device_times:
+                    r["device_ms"], r["launches"] = \
+                        _device_ms_and_launches(call)
+                    r["share_of_bound"] = bound / r["device_ms"]
+            del q, k, v, ck, cv, ck0, cv0, got, want, default
+        out[name] = r
+        print(json.dumps({"decode_attn_scale": {name: r}}))
+    _zero_counters()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3045,6 +3109,7 @@ def main() -> int:
     quant_err = phase_quant_kernels()
     storage_err = phase_storage_kernels()
     decode_run = phase_decode_attention()
+    decode_run.update(phase_decode_attention_scale())
     torch.cuda.empty_cache()
     slice_run = phase_slice()
     print(json.dumps({"slice": slice_run, "card": card}))
@@ -3104,6 +3169,7 @@ def main() -> int:
     print(json.dumps({"vlm_kernel_times": vt, "card": card}))
     for name, r in phase_decode_attention_times().items():
         decode_run[name].update(r)
+    decode_run.update(phase_decode_attention_scale(device_times=True))
     print(json.dumps({"ckpt_train": {
         k: v for k, v in ckpt_run.items()
         if k in ("result", "run_s", "check_s", "launches", "timings",

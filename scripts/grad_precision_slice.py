@@ -35,8 +35,8 @@ def fp32_delta_backward(ctx, dout):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     q, k, v, _out, lse = ctx.saved_tensors
-    n_kv, causal, window, prefix = ctx.mask
-    mask = dict(causal=causal, window=window, prefix=prefix)
+    n_kv, causal, window, prefix, scale = ctx.mask
+    mask = dict(causal=causal, window=window, prefix=prefix, scale=scale)
     k4, v4 = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
     o32, _ = fa.flash_fwd(ops._five_d(q.float(), n_kv), k4.float(),
                           v4.float(), **mask)
@@ -45,7 +45,8 @@ def fp32_delta_backward(ctx, dout):
     dq5, dk4, dv4 = fa.flash_bwd(ops._five_d(q, n_kv), k4, v4, do5, lse,
                                  delta, **mask)
     return (ops._four_d(dq5).to(q.dtype), dk4.permute(0, 2, 1, 3).to(k.dtype),
-            dv4.permute(0, 2, 1, 3).to(v.dtype), None, None, None, None)
+            dv4.permute(0, 2, 1, 3).to(v.dtype), None, None, None, None,
+            None)
 
 
 def main() -> int:

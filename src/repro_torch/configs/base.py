@@ -9,7 +9,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
-Family = Literal["dense", "encdec", "vlm", "hybrid", "moe", "ssm", "audio"]
+Family = Literal["dense", "encdec", "vlm", "hybrid", "moe", "ssm", "audio",
+                 "ssm_moe"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +27,8 @@ class ModelConfig:
     # attention options
     rope_theta: float = 10000.0
     rotary_pct: float = 1.0
+    nope: bool = False               # no position encoding (rotary_pct 0)
+    attention_multiplier: float = 0.0  # softmax scale; 0 = 1/sqrt(head_dim)
     swa_window: int = 0              # sliding-window attention; 0 = full
     mlp: str = "swiglu"              # swiglu | geglu | gelu
     # enc-dec
@@ -38,6 +41,7 @@ class ModelConfig:
     experts_per_token: int = 0
     moe_dense_ff: int = 0            # arctic: parallel dense-residual FFN
     capacity_factor: float = 1.25
+    moe_dropless: bool = False       # every choice computed, none dropped
     # hybrid (recurrentgemma / griffin)
     attn_every: int = 0              # one attention block per N blocks
     lru_width: int = 0
@@ -48,6 +52,15 @@ class ModelConfig:
     ssm_headdim: int = 64
     ssm_expand: int = 2
     ssm_chunk: int = 256
+    ssm_conv_bias: bool = False
+    # ssm_moe (granite-4.0-h): "mamba" / "attention" a layer, in order
+    layer_types: tuple = ()
+    # norms, embedding, residual branches and head
+    rms_eps: float = 1e-6
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0      # logits = head(x) / logits_scaling
+    tie_embeddings: bool = False     # the head is the token embedding
     # numerics / training
     param_dtype: str = "bfloat16"
     optimizer: str = "adamw"         # adamw | adafactor
@@ -91,6 +104,8 @@ class ModelConfig:
         d, V = self.d_model, self.padded_vocab()
         emb = V * d
         per_layer = 0
+        if self.family == "ssm_moe":
+            return self._ssm_moe_params()
         if self.family == "ssm":
             din = self.ssm_expand * d
             # in_proj (z,x,B,C,dt) + conv + out_proj + A,D,norm
@@ -125,8 +140,28 @@ class ModelConfig:
                     + self.dec_layers * (per_layer + cross) + d)
         return emb + n_blocks * per_layer + d
 
+    def _ssm_moe_params(self) -> int:
+        """Every leaf of the ssm_moe tree: the embedding (and an untied
+        head), the final norm, each layer's mixer (Mamba2 or attention),
+        its two norms and its MoE FFN (router, experts, shared expert)."""
+        d, V, E = self.d_model, self.padded_vocab(), self.n_experts
+        din, H, N = self.ssm_expand * d, self.ssm_heads, self.ssm_state
+        conv_ch = din + 2 * N
+        mamba = (d * (2 * din + 2 * N + H) + self.conv_width * conv_ch
+                 + conv_ch * self.ssm_conv_bias + 3 * H + din + din * d)
+        attn = 2 * d * self.q_dim + 2 * d * self.kv_dim
+        ffn = d * E + E * 3 * d * self.d_ff + 3 * d * self.moe_dense_ff
+        n_attn = self.layer_types.count("attention")
+        return (V * d * (1 if self.tie_embeddings else 2) + d
+                + (self.n_layers - n_attn) * mamba + n_attn * attn
+                + self.n_layers * (ffn + 2 * d))
+
     def active_params(self) -> int:
         """Params touched per token (MoE: routed experts only)."""
+        if self.family == "ssm_moe":
+            idle = self.n_experts - self.experts_per_token
+            return self.n_params() - self.n_layers * idle * 3 \
+                * self.d_model * self.d_ff
         if self.family != "moe":
             return self.n_params()
         d = self.d_model
@@ -178,6 +213,13 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         changes.update(attn_every=3, lru_width=64, local_window=32)
     if cfg.family == "ssm":
         changes.update(ssm_state=16, ssm_headdim=16, ssm_chunk=8)
+    if cfg.family == "ssm_moe":
+        # both kinds of layer (an attention layer second of three), 8
+        # experts with 3 a token, and the shared expert
+        changes.update(n_layers=3, n_kv_heads=2, layer_types=(
+            "mamba", "attention", "mamba"), n_experts=8,
+            experts_per_token=3, moe_dense_ff=48, ssm_state=16,
+            ssm_headdim=16, ssm_chunk=8)
     if cfg.n_prefix_tokens:
         changes.update(n_prefix_tokens=4)
     if cfg.swa_window:

@@ -49,15 +49,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, pct: float,
     return torch.cat([y1.to(x.dtype), y2.to(x.dtype), xp], dim=-1)
 
 
-def gqa_scores_softmax_v(q, k, v, mask, n_kv):
+def gqa_scores_softmax_v(q, k, v, mask, n_kv, scale=None):
     """q: (B,Sq,Hq,D), k/v: (B,Sk,Hkv,D). Returns (B,Sq,Hq,D).
-    Scores in fp32, divided by sqrt(D) after the product; probabilities
-    cast to q's dtype before the P.V product."""
+    Scores in fp32, divided by sqrt(D) after the product (times ``scale``
+    where one is given); probabilities cast to q's dtype before the P.V
+    product."""
     B, Sq, Hq, D = q.shape
     G = Hq // n_kv
     qg = q.reshape(B, Sq, n_kv, G, D)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
-    scores = scores / math.sqrt(D)
+    scores = scores / math.sqrt(D) if scale is None else scores * scale
     if mask is not None:
         scores = scores + mask
     probs = torch.softmax(scores, dim=-1).to(q.dtype)

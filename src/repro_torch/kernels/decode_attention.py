@@ -56,12 +56,12 @@ _INV_FREQ: dict = {}
 
 
 def decode_attention_reference(q, k, v, cache_k, cache_v, pos, rotary_pct,
-                               rope_theta, rope_bf16):
+                               rope_theta, rope_bf16, scale=None):
     """Plain torch: ``layers.attention_decode``'s body after the
     projections.  q: (B, 1, Hq, D); k, v: (B, 1, Hkv, D); the caches (B,
     S_cache, Hkv, D), written in place.  Returns (B, 1, Hq, D) in q's
     dtype.  ``rope_bf16``: rope's products in x's dtype (``layers``'
-    ``_NORM_BF16``)."""
+    ``_NORM_BF16``); ``scale``: the softmax scale, None for 1/sqrt(D)."""
     B = q.shape[0]
     S_cache = cache_k.shape[1]
     posv = torch.full((B, 1), pos, dtype=torch.int32, device=q.device)
@@ -79,7 +79,7 @@ def decode_attention_reference(q, k, v, cache_k, cache_v, pos, rotary_pct,
     mask = torch.where(valid, 0.0, -1e30).to(torch.float32)[
         None, None, None]
     return gqa_scores_softmax_v(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
-                                mask, cache_k.shape[2])
+                                mask, cache_k.shape[2], scale)
 
 
 def _check(q, k, v, cache_k, cache_v, pos):
@@ -154,17 +154,20 @@ def _inv_freq(device, D: int, pct: float, theta: float):
 
 
 def decode_attn(q, k, v, cache_k, cache_v, pos: int, rotary_pct: float,
-                rope_theta: float, rope_bf16: bool):
+                rope_theta: float, rope_bf16: bool,
+                scale: float | None = None):
     """q: (B, 1, Hq, D); k, v: (B, 1, Hkv, D), before rope; cache_k,
     cache_v: (B, S_cache, Hkv, D), the new k/v written into slot
     ``pos % S_cache`` in place.  Returns (B, 1, Hq, D) in q's dtype.
+    ``scale``: the softmax scale, None for 1/sqrt(D).
     On the card every operand must have a contiguous last dimension and
     16-byte aligned pointers and strides, and D * itemsize must be a
     multiple of 16."""
     _check(q, k, v, cache_k, cache_v, pos)
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, cache_k, cache_v, pos,
-                                          rotary_pct, rope_theta, rope_bf16)
+                                          rotary_pct, rope_theta, rope_bf16,
+                                          scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attn runs on cuda or cpu, not {q.device}")
     B, _, Hq, D = q.shape
@@ -204,7 +207,8 @@ def decode_attn(q, k, v, cache_k, cache_v, pos: int, rotary_pct: float,
                         None if part is None else part.data_ptr(),
                         None if inv is None else inv.data_ptr(), args,
                         _DTYPE_CODES[q.dtype], _ROUTE_CODES[route],
-                        math.log2(math.e) / math.sqrt(D), stream)
+                        math.log2(math.e) / math.sqrt(D) if scale is None
+                        else math.log2(math.e) * scale, stream)
     if err != 0:
         raise RuntimeError(f"decode_attn kernel launch failed ({route} "
                            f"route): cudaError {err}")
@@ -251,14 +255,15 @@ def decode_attn_bytes(q, k, v, cache_k, cache_v, pos, *args, **kwargs) \
 _LIB = torch.library.Library("repro_torch", "FRAGMENT")
 _LIB.define("decode_attn(Tensor q, Tensor k, Tensor v, Tensor(a!) cache_k, "
             "Tensor(b!) cache_v, int pos, float rotary_pct, "
-            "float rope_theta, bool rope_bf16) -> Tensor")
+            "float rope_theta, bool rope_bf16, float? scale=None) -> "
+            "Tensor")
 for _key in ("CPU", "CUDA"):
     _LIB.impl("decode_attn", decode_attn, _key)
 
 
 @torch.library.register_fake("repro_torch::decode_attn", lib=_LIB)
 def _decode_attn_fake(q, k, v, cache_k, cache_v, pos, rotary_pct,
-                      rope_theta, rope_bf16):
+                      rope_theta, rope_bf16, scale=None):
     _check(q, k, v, cache_k, cache_v, pos)
     return q.new_empty(q.shape)
 
@@ -269,5 +274,6 @@ def _decode_attn_flops(q_shape, k_shape, v_shape, ck_shape, cv_shape, pos,
     return decode_attn_flops(q_shape, ck_shape[1], pos)
 
 
-# (q, k, v, cache_k, cache_v, pos, rotary_pct, rope_theta, rope_bf16) -> out
+# (q, k, v, cache_k, cache_v, pos, rotary_pct, rope_theta, rope_bf16
+#  [, scale]) -> out
 decode_attn_op = torch.ops.repro_torch.decode_attn.default

@@ -48,38 +48,43 @@ class _FlashAttention(torch.autograd.Function):
     """q: (B, S, Hq, D); k, v: (B, Sk, n_kv, D) -> (B, S, Hq, D)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, n_kv, causal, window, prefix):
+    def forward(ctx, q, k, v, n_kv, causal, window, prefix, scale):
         out5, lse = flash_fwd_op(_five_d(q, n_kv), k.permute(0, 2, 1, 3),
                                  v.permute(0, 2, 1, 3), causal, window,
-                                 prefix, 1.0 / math.sqrt(q.shape[-1]))
+                                 prefix, scale)
         out = _four_d(out5)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mask = (n_kv, causal, window, prefix)
+        ctx.mask = (n_kv, causal, window, prefix, scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        n_kv, causal, window, prefix = ctx.mask
+        n_kv, causal, window, prefix, scale = ctx.mask
         do5 = _five_d(dout.contiguous(), n_kv)
         delta = (do5.float() * _five_d(out, n_kv).float()).sum(dim=-1)
         dq5, dk4, dv4 = flash_bwd_op(
             _five_d(q, n_kv), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
-            do5, lse, delta, causal, window, prefix,
-            1.0 / math.sqrt(q.shape[-1]))
+            do5, lse, delta, causal, window, prefix, scale)
         return (_four_d(dq5).to(q.dtype), dk4.permute(0, 2, 1, 3).to(k.dtype),
-                dv4.permute(0, 2, 1, 3).to(v.dtype), None, None, None, None)
+                dv4.permute(0, 2, 1, 3).to(v.dtype), None, None, None, None,
+                None)
 
 
 def flash_attention(q, k, v, n_kv: int, causal: bool = True, window: int = 0,
-                    prefix: int = 0, bq: int = 256, bk: int = 512):
+                    prefix: int = 0, bq: int = 256, bk: int = 512,
+                    scale: float | None = None):
     """q: (B, S, Hq, D); k, v: (B, Sk, n_kv, D) -> (B, S, Hq, D), with a
-    gradient through the backward kernels.
+    gradient through the backward kernels; ``scale`` the softmax scale,
+    None for 1/sqrt(D).
 
     ``bq``/``bk`` are accepted for the JAX signature; the kernels keep their
     own tile sizes."""
     del bq, bk
-    return _FlashAttention.apply(q, k, v, n_kv, causal, window, prefix)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttention.apply(q, k, v, n_kv, causal, window, prefix,
+                                 scale)
 
 
 # ----------------------------- quantisation -----------------------------

@@ -46,7 +46,8 @@ import time
 
 import torch
 
-from ..configs import ARCHS, SHAPES, ShapeConfig, get_arch, shape_applicable
+from ..configs import (ARCHS, SHAPES, STUDY_ARCHS, ShapeConfig, get_arch,
+                       shape_applicable)
 from ..models import input_specs, param_count, param_shapes, text_len
 from ..models import layers as L
 from ..serve import make_decode_step, make_prefill_step
@@ -335,8 +336,10 @@ def _record_name(arch, shape, mesh, tag) -> str:
 
 
 def all_cells():
+    """The (arch, shape) cells of the study's ten architectures."""
     out = []
-    for arch, cfg in ARCHS.items():
+    for arch in STUDY_ARCHS:
+        cfg = ARCHS[arch]
         for sname, shape in SHAPES.items():
             ok, why = shape_applicable(cfg, shape)
             if ok:

@@ -34,10 +34,12 @@ def _block_mask(qi0, ki0, bq, bk, *, causal: bool, window: int, prefix: int,
     return torch.where(allow, 0.0, NEG).to(torch.float32)
 
 
-def _scores(q, k, mask):
-    """q: (B,Hkv,G,bq,D), k: (B,Hkv,bk,D) -> fp32 (B,Hkv,G,bq,bk)."""
+def _scores(q, k, mask, scale=None):
+    """q: (B,Hkv,G,bq,D), k: (B,Hkv,bk,D) -> fp32 (B,Hkv,G,bq,bk); divided
+    by sqrt(D), or times ``scale`` where one is given."""
     s = torch.einsum("bhgqd,bhkd->bhgqk", q.float(), k.float())
-    return s / math.sqrt(q.shape[-1]) + mask
+    s = s / math.sqrt(q.shape[-1]) if scale is None else s * scale
+    return s + mask
 
 
 def _pv(p, v):
@@ -46,8 +48,10 @@ def _pv(p, v):
 
 def blockwise_attention(q, k, v, n_kv: int, *, causal: bool = True,
                         window: int = 0, prefix: int = 0, bq: int = 256,
-                        bk: int = 512) -> torch.Tensor:
-    """q: (B,S,Hq,D); k, v: (B,Sk,Hkv,D) -> (B,S,Hq,D).  fp32 accumulators."""
+                        bk: int = 512, scale: float | None = None) \
+        -> torch.Tensor:
+    """q: (B,S,Hq,D); k, v: (B,Sk,Hkv,D) -> (B,S,Hq,D).  fp32 accumulators;
+    ``scale`` the softmax scale, None for 1/sqrt(D)."""
     B, S, Hq, D = q.shape
     Sk = k.shape[1]
     bq = min(bq, S)
@@ -73,7 +77,7 @@ def blockwise_attention(q, k, v, n_kv: int, *, causal: bool = True,
             vsl = vh[:, :, start:start + span]
             mask = _block_mask(qi * bq, start, bq, span, causal=causal,
                                window=window, prefix=prefix, device=dev)
-            s = _scores(qblk, ksl, mask)
+            s = _scores(qblk, ksl, mask, scale)
             m = s.amax(dim=-1)
             p = torch.exp(s - m[..., None])
             l = p.sum(dim=-1)
@@ -89,12 +93,12 @@ def blockwise_attention(q, k, v, n_kv: int, *, causal: bool = True,
                 vblk = vh[:, :, kj * bk:(kj + 1) * bk]
                 mask = _block_mask(qi * bq, kj * bk, bq, bk, causal=causal,
                                    window=window, prefix=prefix, device=dev)
-                s = _scores(qblk, kblk, mask)
+                s = _scores(qblk, kblk, mask, scale)
                 m_new = torch.maximum(m, s.amax(dim=-1))
-                scale = torch.exp(m - m_new)
+                corr = torch.exp(m - m_new)
                 p = torch.exp(s - m_new[..., None])
-                l = l * scale + p.sum(dim=-1)
-                acc = acc * scale[..., None] + _pv(p, vblk)
+                l = l * corr + p.sum(dim=-1)
+                acc = acc * corr[..., None] + _pv(p, vblk)
                 m = m_new
         outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
     out = torch.cat(outs, dim=3)                               # (B,Hkv,G,S,D)

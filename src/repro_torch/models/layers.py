@@ -121,6 +121,11 @@ def _split_heads(x, n_heads, head_dim):
     return x.reshape(*x.shape[:-1], n_heads, head_dim)
 
 
+def softmax_scale(cfg) -> float | None:
+    """The configuration's softmax scale, or None for 1/sqrt(head_dim)."""
+    return cfg.attention_multiplier or None
+
+
 def attention_decode(params: Params, x: torch.Tensor, cfg,
                      cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
                      n_heads: int):
@@ -142,7 +147,8 @@ def attention_decode(params: Params, x: torch.Tensor, cfg,
         k = _split_heads(x @ params["wk"], cfg.n_kv_heads, cfg.head_dim)
         v = _split_heads(x @ params["wv"], cfg.n_kv_heads, cfg.head_dim)
         out = decode_attn_op(q, k, v, cache_k, cache_v, pos,
-                             cfg.rotary_pct, cfg.rope_theta, _NORM_BF16)
+                             cfg.rotary_pct, cfg.rope_theta, _NORM_BF16,
+                             softmax_scale(cfg))
         return out.reshape(B, 1, -1) @ params["wo"], cache_k, cache_v
 
 
@@ -175,18 +181,31 @@ def apply_mlp(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
 # --------------------------- embeddings / head ---------------------------
 
 def init_embedding(gen: torch.Generator, cfg) -> Params:
+    """The token embedding, the head (none where ``tie_embeddings``: the
+    head is then the embedding's transpose) and the final norm."""
     V = cfg.padded_vocab()
     dt = _dtype(cfg)
-    return {"tok": _init(gen, (V, cfg.d_model), scale=0.02, dtype=dt),
-            "head": _init(gen, (cfg.d_model, V), dtype=dt),
-            "final_norm": torch.ones((cfg.d_model,), dtype=dt,
-                                     device=init_device(gen))}
+    p = {"tok": _init(gen, (V, cfg.d_model), scale=0.02, dtype=dt)}
+    if not cfg.tie_embeddings:
+        p["head"] = _init(gen, (cfg.d_model, V), dtype=dt)
+    p["final_norm"] = torch.ones((cfg.d_model,), dtype=dt,
+                                 device=init_device(gen))
+    return p
 
 
-def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["tok"][tokens]
+def embed(params: Params, tokens: torch.Tensor,
+          multiplier: float = 1.0) -> torch.Tensor:
+    x = params["tok"][tokens]
+    return x * multiplier if multiplier != 1.0 else x
 
 
-def lm_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"])
-    return x @ params["head"]
+def lm_logits(params: Params, x: torch.Tensor, cfg=None) -> torch.Tensor:
+    """The final norm and the head: ``params["head"]``, or where there is
+    none (a tied head) the embedding's transpose, no copy.  With a
+    ``cfg``, its norm eps and its ``logits_scaling``."""
+    x = rms_norm(x, params["final_norm"], 1e-6 if cfg is None
+                 else cfg.rms_eps)
+    logits = x @ (params["head"] if "head" in params else params["tok"].t())
+    if cfg is not None and cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return logits

@@ -1,4 +1,4 @@
-"""Mixture-of-Experts blocks (qwen3-moe, arctic) in torch.
+"""Mixture-of-Experts blocks (qwen3-moe, arctic, granite-4.0-h) in torch.
 
 Counterpart of the JAX package's models/moe.py, with its routing and its
 rounding steps: fp32 router logits and softmax; top-k with ties going to
@@ -25,6 +25,17 @@ reference's scatter-add rounds after each add (the same numbers in fp32).
 can wrap each one in a named range without the model paying for it.
 There is no mesh here: ``shard_batch``/``shard_expert`` are identities, and
 ``n_groups`` only cuts the tokens into groups, each with its own capacity.
+
+Dropless routing (``cfg.moe_dropless``, granite-4.0-h): fp32 router
+logits, the top k, a softmax over those k (the full softmax renormalised
+over them); no capacity, every choice computed (``dropless_ffn``).  Two
+routes, by the number of tokens: ``"batched"`` (at most
+``BATCHED_MAX_TOKENS``: every expert over every token as one batched
+product, each token's k outputs gathered; the decode step) and
+``"grouped"`` (the (token, expert) pairs sorted by expert and the three
+products grouped over them, offsets on the device: ``torch._grouped_mm``
+on the card in bf16, a loop over the experts elsewhere; the prefill).
+``DROPLESS_CALLS`` counts the calls by route, on the host.
 """
 from __future__ import annotations
 
@@ -189,10 +200,16 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg, n_groups: int = 1):
     """x: (B, S, d) -> (y (B, S, d), aux_loss fp32 scalar).
 
     The tokens are cut into ``n_groups`` groups (1 when that does not
-    divide them), each with capacity ``_capacity(T / n_groups)``."""
+    divide them), each with capacity ``_capacity(T / n_groups)``; with
+    ``cfg.moe_dropless``, ``dropless_ffn`` (no groups, no capacity)."""
     B, S, d = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.experts_per_token
+    if cfg.moe_dropless:
+        y, expert, logits = dropless_ffn(params, x, cfg)
+        density = torch.bincount(expert.reshape(-1), minlength=E).float() / T
+        probs = torch.softmax(logits, dim=-1)
+        return y, (density * probs.mean(dim=0)).sum() * E
     G = n_groups if T % n_groups == 0 else 1
     Tg = T // G
     xf = x.reshape(G, Tg, d)
@@ -204,3 +221,96 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg, n_groups: int = 1):
     if "dense" in params:  # arctic: parallel dense residual branch
         y = y + L.apply_mlp(params["dense"], x, cfg)
     return y, aux
+
+
+# ---------------------------------------------------------------- dropless
+
+# The batched route computes every expert on every token: it reads each
+# expert weight once and does 2 T FLOPs on it, so up to ~295 tokens (989
+# TFLOP/s over 3.35 TB/s on an H100) the weights' bytes, not the wasted
+# products, set its time; 64 keeps it well inside that.
+BATCHED_MAX_TOKENS = 64
+DROPLESS_CALLS = {"batched": 0, "grouped": 0}
+
+
+def dropless_route(router: torch.Tensor, x2: torch.Tensor, k: int):
+    """x2: (T, d) -> (gate (T, k) fp32, expert (T, k) int64, logits (T, E)
+    fp32): the k largest router logits and the softmax over them."""
+    logits = x2.float() @ router
+    top, expert = torch.topk(logits, k, dim=-1)
+    return torch.softmax(top, dim=-1), expert, logits
+
+
+def _weighted_sum(picked: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """(T, k, d) expert rows and their (T, k) gates -> (T, d): summed with
+    fp32 accumulation and rounded once, as ``combine`` does."""
+    weighted = picked * gate.to(picked.dtype)[..., None]
+    return weighted.sum(dim=1, dtype=torch.float32).to(picked.dtype)
+
+
+def _batched(params: Params, x2, gate, expert) -> torch.Tensor:
+    """Every expert on every token (E batched products over the same
+    rows), then each token's k chosen outputs."""
+    E = params["w_gate"].shape[0]
+    xe = x2.expand(E, *x2.shape)
+    h = F.silu(torch.bmm(xe, params["w_gate"])) \
+        * torch.bmm(xe, params["w_up"])
+    out = torch.bmm(h, params["w_down"])                     # (E, T, d)
+    picked = torch.gather(out.transpose(0, 1), 1, expert[..., None].expand(
+        -1, -1, out.shape[-1]))
+    return _weighted_sum(picked, gate)
+
+
+def grouped_mm(a: torch.Tensor, w: torch.Tensor,
+               ends: torch.Tensor) -> torch.Tensor:
+    """a: (M, K) rows grouped by expert, ``ends`` (E,) int32 the end of
+    each expert's rows; w: (E, K, N) -> (M, N), expert e's rows times
+    w[e].  One grouped GEMM on the card in bf16; elsewhere a loop over
+    the experts, which reads ``ends`` to the host."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch._grouped_mm(a, w, offs=ends)
+    out = a.new_empty((a.shape[0], w.shape[-1]))
+    start = 0
+    for e, end in enumerate(ends.tolist()):
+        if end > start:
+            out[start:end] = a[start:end] @ w[e]
+        start = end
+    return out
+
+
+def _grouped(params: Params, x2, gate, expert) -> torch.Tensor:
+    """The (token, choice) pairs sorted by expert (stable), the SwiGLU as
+    three grouped products over them, the outputs put back in (token,
+    choice) order and summed by gate."""
+    T, k = expert.shape
+    E = params["w_gate"].shape[0]
+    flat = expert.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    ends = torch.cumsum(torch.bincount(flat, minlength=E), 0,
+                        dtype=torch.int32)
+    xs = x2.index_select(0, order // k)
+    h = F.silu(grouped_mm(xs, params["w_gate"], ends)) \
+        * grouped_mm(xs, params["w_up"], ends)
+    del xs
+    ys = grouped_mm(h, params["w_down"], ends)
+    del h
+    pairs = torch.empty_like(ys).index_copy_(0, order, ys)
+    return _weighted_sum(pairs.reshape(T, k, -1), gate)
+
+
+def dropless_ffn(params: Params, x: torch.Tensor, cfg):
+    """x: (B, S, d) -> (y (B, S, d), expert (T, k), logits (T, E) fp32):
+    every token's k experts computed (none dropped) on the route its
+    token count takes, plus the shared expert (``params["dense"]``)."""
+    B, S, d = x.shape
+    x2 = x.reshape(B * S, d)
+    gate, expert, logits = dropless_route(params["router"], x2,
+                                          cfg.experts_per_token)
+    route = "batched" if B * S <= BATCHED_MAX_TOKENS else "grouped"
+    DROPLESS_CALLS[route] += 1
+    y = (_batched if route == "batched" else _grouped)(params, x2, gate,
+                                                       expert)
+    y = y.reshape(B, S, d)
+    if "dense" in params:
+        y = y + L.apply_mlp(params["dense"], x, cfg)
+    return y, expert, logits

@@ -13,6 +13,11 @@ reference's ``lax.scan`` over chunks is a Python loop here (at most 16
 chunks at the training length).  Decode is the O(1) recurrence on a
 (B, H, N, P) state.  ``jax.nn.softplus`` is ``logaddexp(x, 0)`` where
 ``F.softplus`` returns x above 20: they differ by < 2e-9.
+
+``cfg.ssm_conv_bias`` adds a bias to the depthwise conv (granite-4.0-h),
+and the gated norm takes ``cfg.rms_eps``.  ``SSD_CALLS`` counts the
+prefill (``ssd_forward``) and decode (``ssd_decode_step``) calls, on the
+host.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from .layers import _dtype, _init, init_device, rms_norm
+
+SSD_CALLS = {"prefill": 0, "decode": 0}
 
 
 def init_ssm(gen: torch.Generator, cfg) -> dict:
@@ -29,11 +36,14 @@ def init_ssm(gen: torch.Generator, cfg) -> dict:
     N = cfg.ssm_state
     dt = _dtype(cfg)
     f32 = dict(dtype=torch.float32, device=init_device(gen))
-    return {
+    p = {
         # fused input projection: [z (gate), x, B, C, dt]
         "w_in": _init(gen, (d, 2 * din + 2 * N + H), dtype=dt),
         "conv": _init(gen, (cfg.conv_width, din + 2 * N), scale=0.5,
-                      dtype=dt),
+                      dtype=dt)}
+    if cfg.ssm_conv_bias:
+        p["conv_bias"] = _init(gen, (din + 2 * N,), scale=0.5, dtype=dt)
+    return p | {
         "a_log": torch.full((H,), -0.5, **f32),
         "d_skip": torch.ones((H,), **f32),
         "dt_bias": torch.zeros((H,), **f32),
@@ -49,9 +59,10 @@ def _split_proj(cfg, proj):
     return torch.split(proj, [din, din, N, N, cfg.ssm_heads], dim=-1)
 
 
-def _causal_conv(x, w, state=None):
-    """x: (B, S, D); w: (K, D) depthwise causal conv.  If state (B, K-1, D)
-    is given, runs in streaming mode and returns (y, new_state)."""
+def _causal_conv(x, w, state=None, bias=None):
+    """x: (B, S, D); w: (K, D) depthwise causal conv, plus ``bias`` (D,)
+    where one is given.  If state (B, K-1, D) is given, runs in streaming
+    mode and returns (y, new_state)."""
     K = w.shape[0]
     if state is None:
         pad = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
@@ -62,6 +73,8 @@ def _causal_conv(x, w, state=None):
     y = xp[:, :S] * w[0]
     for i in range(1, K):
         y = y + xp[:, i:i + S] * w[i]
+    if bias is not None:
+        y = y + bias
     if state is None:
         return F.silu(y)
     return F.silu(y), xp[:, -(K - 1):]
@@ -100,7 +113,8 @@ def ssd_forward(params: dict, x: torch.Tensor, cfg,
     K = params["conv"].shape[0]
     pad = conv_in.new_zeros((B, max(0, K - 1 - S), conv_in.shape[-1]))
     conv_tail = torch.cat([pad, conv_in[:, -(K - 1):]], dim=1)
-    conv_out = _causal_conv(conv_in, params["conv"])
+    conv_out = _causal_conv(conv_in, params["conv"],
+                            bias=params.get("conv_bias"))
     din = xin.shape[-1]
     xin, Bc, Cc = torch.split(conv_out, [din, N, N], dim=-1)
 
@@ -142,7 +156,8 @@ def ssd_forward(params: dict, x: torch.Tensor, cfg,
     y = (y_intra + y_inter).reshape(B, S, H, P)
     y = y + params["d_skip"][None, None, :, None] * xh.reshape(B, S, H, P)
     y = y.reshape(B, S, H * P).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["out_norm"])
+    y = rms_norm(y * F.silu(z), params["out_norm"], cfg.rms_eps)
+    SSD_CALLS["prefill"] += 1
     return y @ params["w_out"], h, conv_tail
 
 
@@ -155,7 +170,8 @@ def ssd_decode_step(params: dict, x: torch.Tensor, cfg,
     proj = x @ params["w_in"]
     z, xin, Bc, Cc, dtp = _split_proj(cfg, proj)
     conv_in = torch.cat([xin, Bc, Cc], dim=-1)
-    conv_out, conv_state = _causal_conv(conv_in, params["conv"], conv_state)
+    conv_out, conv_state = _causal_conv(conv_in, params["conv"], conv_state,
+                                        params.get("conv_bias"))
     din = xin.shape[-1]
     xin, Bc, Cc = torch.split(conv_out, [din, N, N], dim=-1)
     dt = F.softplus(dtp.float() + params["dt_bias"])[:, 0]  # (B, H)
@@ -169,5 +185,6 @@ def ssd_decode_step(params: dict, x: torch.Tensor, cfg,
     y = torch.einsum("bn,bhnp->bhp", Cv, state)
     y = y + params["d_skip"][None, :, None] * xh
     y = y.reshape(B, 1, H * P).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["out_norm"])
+    y = rms_norm(y * F.silu(z), params["out_norm"], cfg.rms_eps)
+    SSD_CALLS["decode"] += 1
     return y @ params["w_out"], state, conv_state

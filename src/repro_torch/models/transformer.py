@@ -19,6 +19,11 @@ self-attention, cross-attention to the encoder's output (no final norm,
 no rope), then the MLP.
 A family with no branch of its own (the configs' "audio") takes the
 dense, token-only stack at every dispatch, as in the reference.
+The ssm_moe family (granite-4.0-h) keeps its Mamba2 and attention layers
+in two stacks (``ssm_blocks``, ``attn_blocks``) and applies them in
+``cfg.layer_types`` order (``layer_order``); every layer is a mixer then
+the dropless MoE FFN with its shared expert, each branch scaled by
+``cfg.residual_multiplier`` before it is added.
 
   forward_train(params, cfg, batch) -> (hidden, aux_loss)
 """
@@ -29,6 +34,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..spans import span
 from ..tree import tree_map
 from . import layers as L
 from . import moe as M
@@ -48,6 +54,9 @@ def _block_init(gen: torch.Generator, cfg, kind: str, tp_pad: int) -> Params:
                               device=L.init_device(gen))
     if kind == "ssm":
         return {"ssm": SSM.init_ssm(gen, cfg), "norm1": ones()}
+    if kind == "ssm_moe":
+        return {"norm1": ones(), "ssm": SSM.init_ssm(gen, cfg),
+                "norm2": ones(), "moe": M.init_moe(gen, cfg)}
     if kind == "rec":
         return {"norm1": ones(), "rec": R.init_rglru_block(gen, cfg),
                 "norm2": ones(), "mlp": L.init_mlp(gen, cfg)}
@@ -91,7 +100,17 @@ def block_kinds(cfg) -> list[str]:
     if cfg.family == "hybrid":
         return ["local_attn" if (i + 1) % cfg.attn_every == 0 else "rec"
                 for i in range(cfg.n_layers)]
+    if cfg.family == "ssm_moe":
+        return ["moe" if t == "attention" else "ssm_moe"
+                for t in cfg.layer_types]
     return ["attn"] * cfg.n_layers
+
+
+def layer_order(cfg) -> list[tuple[str, int]]:
+    """The ssm_moe layers in order as (layer type, index in its stack):
+    ``"mamba"`` indexes ``ssm_blocks``, ``"attention"`` ``attn_blocks``."""
+    types = cfg.layer_types
+    return [(t, types[:i].count(t)) for i, t in enumerate(types)]
 
 
 def hybrid_layout(cfg) -> tuple[int, int]:
@@ -119,6 +138,12 @@ def init_model(gen: torch.Generator | None, cfg, tp_pad: int = 1) -> Params:
                                       tp_pad)
         params["attn_blocks"] = _stack(gen, cfg, "local_attn", n_super,
                                        tp_pad)
+        return params
+    if cfg.family == "ssm_moe":
+        n_attn = cfg.layer_types.count("attention")
+        params["ssm_blocks"] = _stack(gen, cfg, "ssm_moe",
+                                      cfg.n_layers - n_attn, tp_pad)
+        params["attn_blocks"] = _stack(gen, cfg, "moe", n_attn, tp_pad)
         return params
     params["blocks"] = _stack(gen, cfg, block_kinds(cfg)[0], cfg.n_layers,
                               tp_pad)
@@ -157,12 +182,19 @@ def _grad_slot(a: torch.Tensor, i: int) -> torch.Tensor:
 # block apply (full sequence)
 # ======================================================================
 
+def _residual(x, y, cfg):
+    """x + residual_multiplier * y, one op either way."""
+    if cfg.residual_multiplier == 1.0:
+        return x + y
+    return torch.add(x, y, alpha=cfg.residual_multiplier)
+
+
 def _apply_attn_block(p: Params, x, cfg, positions, *, n_heads, window=0,
                       prefix=0, causal=True, kv_override=None):
     """-> (x + attention(norm1(x)), (k, v)).  With ``kv_override`` (the
     encoder's output, cross-attention) k and v are its projections, taken
     as it is, and neither q nor k is rotated."""
-    h = L.rms_norm(x, p["norm1"])
+    h = L.rms_norm(x, p["norm1"], cfg.rms_eps)
     B, Sq, d = h.shape
     src = h if kv_override is None else kv_override
     q = L._split_heads(h @ p["attn"]["wq"], n_heads, cfg.head_dim)
@@ -171,31 +203,35 @@ def _apply_attn_block(p: Params, x, cfg, positions, *, n_heads, window=0,
     if kv_override is None:
         q = L.apply_rope(q, positions, cfg.rotary_pct, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rotary_pct, cfg.rope_theta)
+    scale = L.softmax_scale(cfg)
     if cfg.attn_impl == "flash_pallas":
         from ..kernels.ops import flash_attention
         out = flash_attention(q, k, v, cfg.n_kv_heads, causal, window,
-                              prefix, cfg.flash_bq, cfg.flash_bk)
+                              prefix, cfg.flash_bq, cfg.flash_bk, scale)
     elif cfg.attn_impl == "flash":
         out = blockwise_attention(q, k, v, cfg.n_kv_heads, causal=causal,
                                   window=window, prefix=prefix,
-                                  bq=cfg.flash_bq, bk=cfg.flash_bk)
+                                  bq=cfg.flash_bq, bk=cfg.flash_bk,
+                                  scale=scale)
     elif cfg.attn_impl == "flash_cvjp":
+        if scale is not None:
+            raise ValueError("flash_cvjp takes the 1/sqrt(D) scale only")
         from .attention_flash_vjp import flash_attention
         out = flash_attention(q, k, v, cfg.n_kv_heads, causal, window,
                               prefix, cfg.flash_bq, cfg.flash_bk)
     else:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
-    x = x + out.reshape(B, Sq, -1) @ p["attn"]["wo"]
+    x = _residual(x, out.reshape(B, Sq, -1) @ p["attn"]["wo"], cfg)
     return x, (k, v)
 
 
 def _apply_mlp_or_moe(p: Params, x, cfg, n_groups=1):
     """-> (x + ffn(norm(x)), aux): the MoE layer's load-balance loss, or 0
     after a dense MLP."""
-    h = L.rms_norm(x, p["norm2"])
+    h = L.rms_norm(x, p["norm2"], cfg.rms_eps)
     if "moe" in p:
         y, aux = M.moe_ffn(p["moe"], h, cfg, n_groups=n_groups)
-        return x + y, aux
+        return _residual(x, y, cfg), aux
     y = L.apply_mlp(p["mlp"], h, cfg)
     return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -240,10 +276,19 @@ def _rec_block(p, x, cfg, state=None, conv_state=None):
 
 def _ssm_block(p, x, cfg, state=None):
     """-> (x', (final state, conv tail))."""
-    h = L.rms_norm(x, p["norm1"])
+    h = L.rms_norm(x, p["norm1"], cfg.rms_eps)
     y, final, conv_tail = SSM.ssd_forward(p["ssm"], h, cfg,
                                           initial_state=state)
-    return x + y, (final, conv_tail)
+    return _residual(x, y, cfg), (final, conv_tail)
+
+
+def _serve_ffn(p, x, cfg, name: str):
+    """The ssm_moe layer's FFN when serving, inside span ``name``: the
+    norm, the dropless MoE and its shared expert (no aux loss), the
+    scaled residual."""
+    with span(name):
+        h = L.rms_norm(x, p["norm2"], cfg.rms_eps)
+        return _residual(x, M.dropless_ffn(p["moe"], h, cfg)[0], cfg)
 
 
 # ======================================================================
@@ -263,13 +308,13 @@ def _sinusoidal(positions, d):
 def _embed_inputs(params, cfg, batch):
     """Returns (x (B,S,d), positions (B,S)); the VLM's stub patch
     embeddings come first, and positions run over them too."""
-    x = L.embed(params["embed"], batch["tokens"])
+    x = L.embed(params["embed"], batch["tokens"], cfg.embedding_multiplier)
     if cfg.family == "vlm":
         x = torch.cat([batch["prefix_emb"].to(x.dtype), x], dim=1)
     x = L.shard_batch(x)
     B, Sx = x.shape[:2]
     positions = torch.arange(Sx, device=x.device)[None].expand(B, Sx)
-    if cfg.rotary_pct == 0.0:
+    if cfg.rotary_pct == 0.0 and not cfg.nope:
         x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)
     return x, positions
 
@@ -360,6 +405,17 @@ def forward_train(params: Params, cfg, batch, n_groups: int = 1):
                   for s in range(n_super)]
         bodies += [(leftover, take(rec, 2 * n_super + t))
                    for t in range(n_left)]
+    elif cfg.family == "ssm_moe":
+        def mamba(lp, xx):
+            return _apply_mlp_or_moe(lp, _ssm_block(lp, xx, cfg)[0], cfg)
+
+        def attention(lp, xx):
+            xx, _ = _apply_attn_block(lp, xx, cfg, positions,
+                                      n_heads=n_heads)
+            return _apply_mlp_or_moe(lp, xx, cfg)
+        bodies = [(mamba, take(params["ssm_blocks"], j)) if t == "mamba"
+                  else (attention, take(params["attn_blocks"], j))
+                  for t, j in layer_order(cfg)]
     else:
         prefix = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
 
@@ -378,6 +434,6 @@ def params_n_heads(params: Params, cfg) -> int:
     """Recover the (possibly TP-padded) q-head count from the weights."""
     if cfg.family == "ssm":
         return 0
-    stack = {"hybrid": "attn_blocks", "encdec": "decoder"}.get(cfg.family,
-                                                               "blocks")
+    stack = {"hybrid": "attn_blocks", "encdec": "decoder",
+             "ssm_moe": "attn_blocks"}.get(cfg.family, "blocks")
     return params[stack]["attn"]["wq"].shape[-1] // cfg.head_dim

@@ -19,17 +19,17 @@ CHUNK = 512
 def chunked_softmax_xent(hidden: torch.Tensor, embed_params: dict,
                          labels: torch.Tensor,
                          mask: torch.Tensor | None = None,
-                         chunk: int = CHUNK) -> torch.Tensor:
+                         chunk: int = CHUNK, cfg=None) -> torch.Tensor:
     """hidden: (B, S, d); labels: (B, S) integer; mask: (B, S) or None.
-    Returns the mean masked token loss (fp32 scalar)."""
+    Returns the mean masked token loss (fp32 scalar); the logits are
+    ``layers.lm_logits``' under ``cfg``."""
     B, S, d = hidden.shape
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
     c = next(cc for cc in range(min(chunk, S), 0, -1) if S % cc == 0)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, S, c):
-        h = L.rms_norm(hidden[:, i:i + c], embed_params["final_norm"])
-        logits = (h @ embed_params["head"]).float()
+        logits = L.lm_logits(embed_params, hidden[:, i:i + c], cfg).float()
         lse = torch.logsumexp(logits, dim=-1)
         lab = labels[:, i:i + c].long()
         gold = torch.gather(logits, -1, lab[..., None])[..., 0]
@@ -48,5 +48,6 @@ def lm_loss(params: dict, cfg, hidden: torch.Tensor, tokens: torch.Tensor,
                                  device=tokens.device),
                       torch.zeros((B, 1), dtype=torch.float32,
                                   device=tokens.device)], dim=1)
-    loss = chunked_softmax_xent(hidden, params["embed"], labels, mask)
+    loss = chunked_softmax_xent(hidden, params["embed"], labels, mask,
+                                cfg=cfg)
     return loss + aux_weight * aux

@@ -149,8 +149,8 @@ def test_step_refuses_tokens_on_another_device(factory):
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_init_model_builds_every_arch(arch):
     """Every architecture's smoke model builds, with no family left out:
-    the configs name seven families, the architectures use six of them,
-    and the seventh ("audio") takes the dense stack as in the reference
+    the configs name eight families, the architectures use seven of them,
+    and the eighth ("audio") takes the dense stack as in the reference
     (held against it in test_torch_families.py)."""
     from typing import get_args
 
@@ -158,7 +158,7 @@ def test_init_model_builds_every_arch(arch):
     from repro_torch.configs.base import Family
     from repro_torch.models import init_model
     assert get_args(Family) == ("dense", "encdec", "vlm", "hybrid", "moe",
-                                "ssm", "audio")
+                                "ssm", "audio", "ssm_moe")
     assert {a.family for a in ARCHS.values()} == set(get_args(Family)) \
         - {"audio"}
     cfg = smoke_variant(ARCHS[arch])

@@ -857,6 +857,88 @@ def test_decode_attn_kernel_matches_plain_version(cuda, case, dtype,
     assert torch.equal(cv[:, keep], cv0[:, keep])
 
 
+@pytest.mark.parametrize("pos", [1024, 1151])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_kernel_takes_a_set_scale(cuda, dtype, pos):
+    """granite-4.0-h-small's shape: 16 rows, 32 q / 8 kv heads of 128, no
+    rope, softmax scale 1/128 over 1152 slots (G 4, the CUDA-core route):
+    the kernel against its twin at that scale, and the scale taken (the
+    default 1/sqrt(128) gives another output)."""
+    from repro_torch.kernels import decode_attention as da
+    case = (16, 1152, 32, 8, 128, 0.0, 1e4, pos)
+    q, k, v, ck, cv = _decode_inputs(case, dtype, cuda)
+    rk, rv = ck.clone(), cv.clone()
+    routes = dict(da.ROUTE_LAUNCHES)
+    out = da.decode_attn(q, k, v, ck, cv, pos, 0.0, 1e4, False, 1 / 128)
+    torch.cuda.synchronize()
+    assert da.ROUTE_LAUNCHES["simt"] == routes["simt"] + 1
+    want = da.decode_attention_reference(q, k, v, rk, rv, pos, 0.0, 1e4,
+                                         False, 1 / 128)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(ck[:, pos], k[:, 0]) and torch.equal(cv[:, pos],
+                                                            v[:, 0])
+    default = da.decode_attention_reference(q, k, v, rk, rv, pos, 0.0, 1e4,
+                                            False)
+    assert float((default.float() - want.float()).abs().max()) > 10 * tol
+
+
+def test_granite_decode_graphs_replay_the_eager_step(cuda):
+    """granite-4.0-h-small's smoke model in bf16 on the card: decode steps
+    replayed from CUDA graphs (``DecodeGraphs``, captured after the first
+    step on the cache, which runs op by op) give the bits of the op-by-op
+    step, logits and cache, step after step, and its spans and call
+    counters."""
+
+    import contextlib
+
+    from repro_torch import spans
+    from repro_torch.configs import ARCHS, smoke_variant
+    from repro_torch.models import forward_decode, init_model
+    from repro_torch.models import decode as D
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.models import ssm as SSM
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    cfg = dataclasses.replace(smoke_variant(ARCHS["granite-4.0-h-small"]),
+                              param_dtype="bfloat16", attn_impl="flash")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_model(gen, cfg, device=cuda)
+    toks = torch.randint(0, 256, (4, 12), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    _, cache_g = make_prefill_step(cfg, pad_to=20, device=cuda)(
+        params, {"tokens": toks[:, :8]})
+    cache_e = {k: v.clone() for k, v in cache_g.items()}
+    graphed = make_decode_step(cfg, device=cuda)
+    captures = D.GRAPH_CAPTURES
+    for pos in range(8, 12):
+        tok = toks[:, pos:pos + 1]
+        SSM.SSD_CALLS.update(prefill=0, decode=0)
+        M.DROPLESS_CALLS.update(batched=0, grouped=0)
+        spans.reset()
+        # the first step captures: under a profiler its capture would
+        # enter the spans a second time
+        ctx = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]) if pos > 8 \
+            else contextlib.nullcontext()
+        with ctx:
+            _, lg_g, cache_g = graphed(params, cache_g, tok, pos)
+        rec = spans.record()
+        assert (SSM.SSD_CALLS["decode"], M.DROPLESS_CALLS["batched"]) \
+            == (2, 3)
+        if pos > 8:
+            assert (rec["decode.ssm"]["count"],
+                    rec["decode.moe"]["count"]) == (2, 3)
+        assert D.GRAPH_CAPTURES == captures + 1
+        with torch.no_grad():
+            h, cache_e = forward_decode(params, cfg, cache_e, tok, pos)
+            lg_e = L.lm_logits(params["embed"], h, cfg)
+        assert torch.equal(lg_g, lg_e)
+        for k in cache_e:
+            assert torch.equal(cache_g[k], cache_e[k]), k
+    spans.reset()
+
+
 def test_decode_attn_is_bit_equal_on_a_repeat(cuda):
     """No atomics: the same inputs give the same bits, split or not."""
     from repro_torch.kernels import decode_attention as da
