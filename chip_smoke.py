@@ -33,7 +33,11 @@ Phases, each fatal on failure:
    (``DECODE_CASES``), bf16 and fp32, each shape on its route, then timed
    against its bound (its device time, the CUDA-core route's where the
    shape takes the tensor cores, and the library's version of the same
-   step are read after the other kernel times, under the profiler);
+   step are read after the other kernel times, under the profiler); then
+   deepseek-7b's full-width decode step at the chat cell's shape replayed
+   from CUDA graphs against op by op (``phase_decode_graphs``: one step
+   bit for bit, host ms a token, device ms, launches a step, captures a
+   round);
 3. drive the serving slice through the port's entry points at full width:
    deepseek-7b (30 layers, d 4096, bf16, random weights from a seeded
    generator on the card), ``attn_impl="flash_pallas"``, B=4 prompts of
@@ -1303,6 +1307,166 @@ def serve_main_path(cfg) -> tuple[dict, dict]:
         "peak_mem_gb": peak_gb, "launches": launches, "routes": routes}
 
 
+# chat's decode shape: 16 rows, 1024-token prompts, a cache of 1152 slots
+CHAT_BATCH = 16
+CHAT_PROMPT = 1024
+CHAT_SLOTS = 1152
+
+
+def _step_profile(fn, iters: int = 8) -> dict:
+    """Under the profiler (host and device), a call of ``fn`` (one decode
+    step): device ms (the device operations' durations summed), device
+    operations, the host's launch calls (kernels and graphs), and the
+    decode-attention kernels the card ran (``decode_attn_kernels``: the
+    simt and mma routes', ``decode_attn_combines``: the split combines')."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events()
+           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    dev = [e.time_range.end - e.time_range.start for e in ops]
+    if not dev:
+        fail("the profiler saw no device operation")
+    launches = sum("LaunchKernel" in e.name or "GraphLaunch" in e.name
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CPU)
+    attn = [e.name for e in ops if "decode_attn_" in e.name]
+    combines = sum("decode_attn_combine_kernel" in n for n in attn)
+    return {"device_ms": sum(dev) / 1e3 / iters,
+            "device_ops": len(dev) / iters, "launches": launches / iters,
+            "decode_attn_kernels": (len(attn) - combines) / iters,
+            "decode_attn_combines": combines / iters}
+
+
+def phase_decode_graphs() -> dict:
+    """deepseek-7b's full-width decode step at chat's shape (CHAT_BATCH
+    rows, a cache of CHAT_SLOTS slots, positions 1024-1151), replayed from
+    CUDA graphs (``models.decode.DecodeGraphs``, through
+    ``make_decode_step``) against op by op (``forward_decode`` without
+    graphs): four rounds of a prefill and 127 greedy tokens, each token
+    copied to the host as the benchmark's chat cell does, three replayed
+    (a round whose cache lands where the last one's did needs no
+    capture), the fourth op by op; host ms a token from the host's clock
+    (the last replayed round's and the op-by-op round's; the first step
+    of each round apart, where a capture falls), device ms, device
+    operations and launch calls a step under the profiler; and one
+    replayed step held bit for bit to the op-by-op step on a copy of the
+    cache (logits and cache)."""
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import decode as D
+    from repro_torch.models import forward_decode, init_model
+    from repro_torch.models import layers as L
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    cfg = dataclasses.replace(get_arch(SLICE_ARCH), attn_impl="flash_pallas")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_model(gen, cfg, device="cuda")
+    prefill = make_prefill_step(cfg, pad_to=CHAT_SLOTS, device="cuda")
+    graphed = make_decode_step(cfg, device="cuda")
+
+    @torch.no_grad()
+    def eager(params, cache, tok, pos):
+        h, cache = forward_decode(params, cfg, cache, tok, pos)
+        logits = L.lm_logits(params["embed"], h, cfg)
+        return _greedy(logits), logits, cache
+
+    def round_(step):
+        """A round through ``step`` -> (host ms of each decode step's
+        token, the cache's address, the captures)."""
+        prompts = torch.randint(0, cfg.vocab_size, (CHAT_BATCH, CHAT_PROMPT),
+                                generator=gen, device="cuda")
+        captures = D.GRAPH_CAPTURES
+        logits, cache = prefill(params, {"tokens": prompts})
+        tok = _greedy(logits)
+        tok.cpu()
+        times = []
+        for j in range(CHAT_SLOTS - CHAT_PROMPT - 1):
+            t0 = time.perf_counter()
+            tok, _, cache = step(params, cache, tok, CHAT_PROMPT + j)
+            tok.cpu()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ptr = cache["k"].data_ptr()
+        del cache, logits
+        return times, ptr, D.GRAPH_CAPTURES - captures
+
+    runs, ptrs, captures, first_ms = {}, [], [], []
+    for name, step in (("replayed", graphed), ("replayed", graphed),
+                       ("replayed", graphed), ("op_by_op", eager)):
+        times, ptr, n = round_(step)
+        runs[name] = times[1:]
+        ptrs.append(ptr)
+        captures.append(n)
+        first_ms.append(times[0])
+    if captures[0] != 1 or set(captures[1:3]) - {0, 1} or captures[3]:
+        fail(f"decode graph captures by round {captures}, want 1, then 0 "
+             f"or 1 twice, then 0")
+
+    # a cache at positions past the prompt, for the profiles and the check
+    prompts = torch.randint(0, cfg.vocab_size, (CHAT_BATCH, CHAT_PROMPT),
+                            generator=gen, device="cuda")
+    logits, cache = prefill(params, {"tokens": prompts})
+    tok = _greedy(logits)
+    pos = CHAT_PROMPT
+    for pos in range(CHAT_PROMPT, CHAT_PROMPT + 64):
+        tok, _, cache = graphed(params, cache, tok, pos)
+    launches = da.DECODE_ATTN_LAUNCHES
+    replays = D.GRAPH_REPLAYS
+    prof = {"replayed": _step_profile(
+                lambda: graphed(params, cache, tok, pos + 1)),
+            "op_by_op": _step_profile(
+                lambda: eager(params, cache, tok, pos + 1))}
+    if D.GRAPH_REPLAYS - replays != 9:
+        fail(f"{D.GRAPH_REPLAYS - replays} decode steps replayed, want 9")
+    if da.DECODE_ATTN_LAUNCHES - launches != 18 * cfg.n_layers:
+        fail(f"decode_attn counted {da.DECODE_ATTN_LAUNCHES - launches} "
+             f"calls in 18 steps of {cfg.n_layers} layers")
+    # what the card ran, against the counter's bookkeeping: one attention
+    # kernel a layer, and a combine a layer where the plan splits the slots
+    n_split = da.decode_plan(cache["k"].dtype, CHAT_BATCH, cfg.n_heads,
+                             cfg.n_kv_heads, CHAT_SLOTS, pos + 1)[2]
+    want = (cfg.n_layers, cfg.n_layers if n_split > 1 else 0)
+    for name, p in prof.items():
+        got = (p["decode_attn_kernels"], p["decode_attn_combines"])
+        if got != want:
+            fail(f"{name}: the card ran {got} decode-attention kernels and "
+                 f"combines a step, want {want}")
+
+    copy = {k: v.clone() for k, v in cache.items()}
+    _, lg_g, cache = graphed(params, cache, tok, pos + 2)
+    _, lg_e, copy = eager(params, copy, tok, pos + 2)
+    bit_equal = bool(torch.equal(lg_g, lg_e)) and all(
+        torch.equal(cache[k], copy[k]) for k in cache)
+    if not bit_equal:
+        fail("a replayed decode step differs from the op-by-op step")
+    out = {"arch": cfg.name, "batch": CHAT_BATCH, "slots": CHAT_SLOTS,
+           "positions": [CHAT_PROMPT, CHAT_SLOTS - 1],
+           "captures_by_round": captures,
+           "first_step_ms_by_round": first_ms,
+           "cache_same_address_as_the_round_before": [
+               a == b for a, b in zip(ptrs, ptrs[1:])],
+           "bit_equal": bit_equal,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    for name, times in runs.items():
+        out[name] = {"host_ms_per_token_median": statistics.median(times),
+                     "host_ms_per_token_p95":
+                         statistics.quantiles(times, n=20)[-1],
+                     "host_ms_per_token_max": max(times), **prof[name]}
+    del params, cache, copy
+    return out
+
+
 def hold(what: str, reading: float, limit: float) -> None:
     """Fail unless ``reading`` is finite and within ``limit``."""
     if not math.isfinite(reading) or reading > limit:
@@ -1438,11 +1602,12 @@ def attention_replayed(params, cfg, batch) -> list:
     from repro_torch.models.attention_flash import blockwise_attention
     kernel, errs = ops.flash_attention, []
 
-    def replayed(q, k, v, n_kv, causal, window, prefix, bq, bk):
-        out = kernel(q, k, v, n_kv, causal, window, prefix, bq, bk)
+    def replayed(q, k, v, n_kv, causal, window, prefix, bq, bk,
+                 scale=None):
+        out = kernel(q, k, v, n_kv, causal, window, prefix, bq, bk, scale)
         errs.append(rel_err(out, blockwise_attention(
             q, k, v, n_kv, causal=causal, window=window, prefix=prefix,
-            bq=bq, bk=bk)))
+            bq=bq, bk=bk, scale=scale)))
         return out
     ops.flash_attention = replayed
     try:
@@ -3110,6 +3275,9 @@ def main() -> int:
     storage_err = phase_storage_kernels()
     decode_run = phase_decode_attention()
     decode_run.update(phase_decode_attention_scale())
+    torch.cuda.empty_cache()
+    graphs_run = phase_decode_graphs()
+    print(json.dumps({"decode_graphs": graphs_run, "card": card}))
     torch.cuda.empty_cache()
     slice_run = phase_slice()
     print(json.dumps({"slice": slice_run, "card": card}))

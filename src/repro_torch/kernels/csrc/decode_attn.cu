@@ -55,6 +55,10 @@
 //     at 64 rows of 4096 slots (qwen3-moe's G = 16), the CUDA-core route
 //     in chunks of 4 heads takes 0.60 ms a call against a byte bound of
 //     0.16 ms, this route 0.25 ms.
+//   * The position can lie on the card (`pos_dev`): each block reads it
+//     there and takes the slot and the valid slots from it, so a launch
+//     captured in a CUDA graph serves every later step whose split plan
+//     (the caller's, from the host's position) is the same.
 // Launches on the caller's stream; no synchronisation, no allocation.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,6 +85,7 @@ struct Params {
   void* out;        // (B, Hq, D), contiguous
   float* part;      // (B, Hq, n_split, D + 2): o, then m and l (log2 units)
   const float* inv; // rot / 2 inverse frequencies, or null
+  const int* pos_dev;  // the position on the card, or null: pos as given
   int64_t q_sb, q_sh, kn_sb, kn_sh, vn_sb, vn_sh;
   int64_t ck_sb, ck_ss, ck_sh, cv_sb, cv_ss, cv_sh;
   int B, Hkv, G, D, S, pos, slot, rot, n_valid, n_split, split_rows, n_gc;
@@ -118,6 +123,16 @@ __device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
     f[2 * i] = __low2float(b);
     f[2 * i + 1] = __high2float(b);
   }
+}
+
+// Where the position lies on the card (a launch replayed from a CUDA graph,
+// whose arguments are frozen), pos, its slot and the valid slots from it,
+// by the host's arithmetic; the caller's split plan must cover them.
+__device__ __forceinline__ void take_pos(Params& p) {
+  if (p.pos_dev == nullptr) return;
+  p.pos = *p.pos_dev;
+  p.slot = p.pos % p.S;
+  p.n_valid = p.pos < p.S ? p.pos + 1 : p.S;
 }
 
 // Element i of a head's rope'd row (row: D values, contiguous), rounded to
@@ -224,6 +239,7 @@ __device__ __forceinline__ void finish(const Params& p, const float* sm,
 template <typename T, int TPR, int NV, int GC>
 __global__ void __launch_bounds__(THREADS)
     decode_attn_simt_kernel(Params p) {
+  take_pos(p);
   constexpr int EPT = 16 / sizeof(T), RPB = THREADS / TPR;
   constexpr int DP = TPR * NV * EPT;   // >= D
   constexpr int U = UNROLL / NV;       // 2 UNROLL 16-byte loads in flight
@@ -362,6 +378,7 @@ constexpr int mma_smem_bytes() {
 
 template <int KD>
 __global__ void __launch_bounds__(THREADS) decode_attn_mma_kernel(Params p) {
+  take_pos(p);
   constexpr int LDS = KD + 8, CH = KD / 8, RSTEP = THREADS / CH;
   constexpr int NO = KD / 8, KS = KD / 16, STAGE = 2 * MMA_TILE * LDS;
   static_assert(MMA_TILE % RSTEP == 0, "rows per pass must divide the tile");
@@ -609,15 +626,18 @@ cudaError_t launch_mma_for_d(const Params& p, cudaStream_t st) {
 // caches (B, S, Hkv, D); out a contiguous (B, Hkv G, D) in q's dtype; part
 // fp32 scratch of B Hkv G n_split (D + 2) values where n_split > 1 (else
 // unused); inv the rot / 2 fp32 inverse frequencies (unused where rot is
-// 0).  dtype: 0 float32, 1 bfloat16.  route: 0 the CUDA cores, 1 the
-// tensor cores (bf16, G <= 16).  Every pointer and stride 16-byte aligned.
+// 0); pos_dev null, or an int on the card that the kernels take the
+// position from in place of a[17] (which still checks the split plan: the
+// two must give the same one).  dtype: 0 float32, 1 bfloat16.  route: 0
+// the CUDA cores, 1 the tensor cores (bf16, G <= 16).  Every pointer and
+// stride 16-byte aligned.
 // Launches one kernel, and the combine where n_split > 1; returns a
 // cudaError_t (cudaErrorInvalidValue for inputs it does not take).
 extern "C" int decode_attn(const void* q, const void* k_new,
                            const void* v_new, void* cache_k, void* cache_v,
                            void* out, void* part, const void* inv,
-                           const int64_t* a, int dtype, int route, float c2,
-                           void* stream) {
+                           const void* pos_dev, const int64_t* a,
+                           int dtype, int route, float c2, void* stream) {
   Params p;
   p.q = q;
   p.kn = k_new;
@@ -627,6 +647,7 @@ extern "C" int decode_attn(const void* q, const void* k_new,
   p.out = out;
   p.part = static_cast<float*>(part);
   p.inv = static_cast<const float*>(inv);
+  p.pos_dev = static_cast<const int*>(pos_dev);
   p.q_sb = a[0]; p.q_sh = a[1];
   p.kn_sb = a[2]; p.kn_sh = a[3];
   p.vn_sb = a[4]; p.vn_sh = a[5];

@@ -13,6 +13,12 @@ body ``attention_decode`` had before the kernel, unchanged), which the
 card's tests also use as the oracle.  ``DECODE_ATTN_LAUNCHES`` counts the
 calls that launched the kernel, and ``ROUTE_LAUNCHES`` the same by route.
 
+The position is a host int, and may also lie on the card (``pos_dev``, a
+0-d int32 tensor): the kernel then reads it there, so that a launch
+captured in a CUDA graph serves later positions.  The host int still picks
+the launch's split plan (``decode_plan``), which the device's position must
+share: a graph is captured for one plan.
+
 Two routes, chosen from the dtype and the GQA group G alone (``_route``):
 ``"simt"`` (fp32, and bf16 with G <= 4: the CUDA cores, every row read
 once for up to 4 query heads) and ``"mma"`` (bf16 with G > 4, up to 16:
@@ -82,7 +88,7 @@ def decode_attention_reference(q, k, v, cache_k, cache_v, pos, rotary_pct,
                                 mask, cache_k.shape[2], scale)
 
 
-def _check(q, k, v, cache_k, cache_v, pos):
+def _check(q, k, v, cache_k, cache_v, pos, pos_dev=None):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or cache_k.dim() != 4:
         raise ValueError("decode_attn takes q (B, 1, Hq, D), k, v (B, 1, "
                          "Hkv, D) and caches (B, S_cache, Hkv, D)")
@@ -107,6 +113,12 @@ def _check(q, k, v, cache_k, cache_v, pos):
         raise ValueError(f"unsupported shape q {tuple(q.shape)}, caches "
                          f"{tuple(cache_k.shape)}, pos {pos} (head dim <= "
                          f"{MAX_HEAD_DIM})")
+    if pos_dev is not None and (pos_dev.dim() != 0
+                                or pos_dev.dtype != torch.int32
+                                or pos_dev.device != q.device):
+        raise ValueError(f"pos_dev must be a 0-d int32 tensor on {q.device}"
+                         f", not {pos_dev.dtype} {tuple(pos_dev.shape)} on "
+                         f"{pos_dev.device}")
 
 
 def _route(dtype, G: int) -> str:
@@ -140,6 +152,21 @@ def decode_splits(batch: int, kv_blocks: int, n_valid: int) \
     return -(-n_valid // rows), rows
 
 
+def decode_plan(dtype, batch: int, Hq: int, Hkv: int, S: int, pos: int) \
+        -> tuple[str, int, int, int]:
+    """(route, group chunks, splits, slots a split) of a call at ``pos``
+    over a cache of ``S`` slots: what its launch is made of, beside the
+    pointers and the position.  One split takes every valid slot whatever
+    its size, so it is sized by the cache: the plan then holds at every
+    position that takes one split."""
+    route = _route(dtype, Hq // Hkv)
+    n_gc = _group_chunks(route, Hq // Hkv)
+    n_split, rows = decode_splits(batch, Hkv * n_gc, min(pos + 1, S))
+    if n_split == 1:
+        rows = -(-S // SPLIT_ROWS) * SPLIT_ROWS
+    return route, n_gc, n_split, rows
+
+
 def _inv_freq(device, D: int, pct: float, theta: float):
     """(the inverse frequencies on ``device``, or None, and rot)."""
     key = (device, D, pct, theta)
@@ -155,25 +182,30 @@ def _inv_freq(device, D: int, pct: float, theta: float):
 
 def decode_attn(q, k, v, cache_k, cache_v, pos: int, rotary_pct: float,
                 rope_theta: float, rope_bf16: bool,
-                scale: float | None = None):
+                scale: float | None = None, pos_dev=None):
     """q: (B, 1, Hq, D); k, v: (B, 1, Hkv, D), before rope; cache_k,
     cache_v: (B, S_cache, Hkv, D), the new k/v written into slot
     ``pos % S_cache`` in place.  Returns (B, 1, Hq, D) in q's dtype.
-    ``scale``: the softmax scale, None for 1/sqrt(D).
+    ``scale``: the softmax scale, None for 1/sqrt(D).  ``pos_dev``: None,
+    or a 0-d int32 tensor on q's device holding the position, which the
+    computation then takes (the plain twin reads it on the host), ``pos``
+    giving only the split plan.
     On the card every operand must have a contiguous last dimension and
     16-byte aligned pointers and strides, and D * itemsize must be a
     multiple of 16."""
-    _check(q, k, v, cache_k, cache_v, pos)
+    _check(q, k, v, cache_k, cache_v, pos, pos_dev)
     if q.device.type == "cpu":
-        return decode_attention_reference(q, k, v, cache_k, cache_v, pos,
-                                          rotary_pct, rope_theta, rope_bf16,
-                                          scale)
+        return decode_attention_reference(
+            q, k, v, cache_k, cache_v,
+            pos if pos_dev is None else int(pos_dev), rotary_pct,
+            rope_theta, rope_bf16, scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attn runs on cuda or cpu, not {q.device}")
     B, _, Hq, D = q.shape
     S, Hkv = cache_k.shape[1], cache_k.shape[2]
     G = Hq // Hkv
-    route = _route(q.dtype, G)
+    route, n_gc, n_split, split_rows = decode_plan(q.dtype, B, Hq, Hkv, S,
+                                                   pos)
     if G > MMA_MAX_GROUP and route == "mma":
         raise ValueError(f"decode_attn takes bf16 groups of at most "
                          f"{MMA_MAX_GROUP} query heads, not {G}")
@@ -190,9 +222,6 @@ def decode_attn(q, k, v, cache_k, cache_v, pos: int, rotary_pct: float,
         raise ValueError("decode_attn on the card needs contiguous last "
                          "dimensions, 16-byte aligned pointers and strides "
                          "and D * itemsize a multiple of 16")
-    n_gc = _group_chunks(route, G)
-    n_valid = min(pos + 1, S)
-    n_split, split_rows = decode_splits(B, Hkv * n_gc, n_valid)
     inv, rot = _inv_freq(q.device, D, rotary_pct, rope_theta)
     out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=q.device)
     part = torch.empty(B * Hq * n_split * (D + 2), dtype=torch.float32,
@@ -205,7 +234,9 @@ def decode_attn(q, k, v, cache_k, cache_v, pos: int, rotary_pct: float,
         stream = torch._C._cuda_getCurrentRawStream(q.device.index)
         err = _kernel()(*ptrs, out.data_ptr(),
                         None if part is None else part.data_ptr(),
-                        None if inv is None else inv.data_ptr(), args,
+                        None if inv is None else inv.data_ptr(),
+                        None if pos_dev is None else pos_dev.data_ptr(),
+                        args,
                         _DTYPE_CODES[q.dtype], _ROUTE_CODES[route],
                         math.log2(math.e) / math.sqrt(D) if scale is None
                         else math.log2(math.e) * scale, stream)
@@ -222,7 +253,7 @@ def _kernel():
     fn = build.load("decode_attn").decode_attn
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [
             ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_void_p]
     return fn
@@ -255,16 +286,16 @@ def decode_attn_bytes(q, k, v, cache_k, cache_v, pos, *args, **kwargs) \
 _LIB = torch.library.Library("repro_torch", "FRAGMENT")
 _LIB.define("decode_attn(Tensor q, Tensor k, Tensor v, Tensor(a!) cache_k, "
             "Tensor(b!) cache_v, int pos, float rotary_pct, "
-            "float rope_theta, bool rope_bf16, float? scale=None) -> "
-            "Tensor")
+            "float rope_theta, bool rope_bf16, float? scale=None, "
+            "Tensor? pos_dev=None) -> Tensor")
 for _key in ("CPU", "CUDA"):
     _LIB.impl("decode_attn", decode_attn, _key)
 
 
 @torch.library.register_fake("repro_torch::decode_attn", lib=_LIB)
 def _decode_attn_fake(q, k, v, cache_k, cache_v, pos, rotary_pct,
-                      rope_theta, rope_bf16, scale=None):
-    _check(q, k, v, cache_k, cache_v, pos)
+                      rope_theta, rope_bf16, scale=None, pos_dev=None):
+    _check(q, k, v, cache_k, cache_v, pos, pos_dev)
     return q.new_empty(q.shape)
 
 
@@ -275,5 +306,5 @@ def _decode_attn_flops(q_shape, k_shape, v_shape, ck_shape, cv_shape, pos,
 
 
 # (q, k, v, cache_k, cache_v, pos, rotary_pct, rope_theta, rope_bf16
-#  [, scale]) -> out
+#  [, scale, pos_dev]) -> out
 decode_attn_op = torch.ops.repro_torch.decode_attn.default

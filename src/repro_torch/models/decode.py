@@ -17,14 +17,16 @@ layers.  Decode writes the new k/v, states and
 conv tails into the cache in place (see ``layers.attention_decode``) and
 returns the same dict.
 
-On the card an ssm_moe decode step replays CUDA graphs where it can
-(``DecodeGraphs``): one graph for each Mamba2 mixer and each MoE FFN,
-chained through static buffers, replayed inside its span; only the
-attention mixers (their ``decode_attn`` call takes the position), the
-embedding and the head run op by op.  A decode step otherwise launches
-some 3,500 kernels, and the host, not the card, would set its pace.  The
-graphs are captured after the first step on a cache (which runs op by
-op) and serve every later step on that cache.
+On the card a decode step of the dense stack, or of ssm_moe on its
+batched route, replays CUDA graphs (``DecodeGraphs``): one graph for each
+layer's mixer and each FFN, chained through static buffers, replayed
+inside its span; the decode-attention op reads the position from the
+card, so the attention mixers are captured too, and only the embedding
+and the head run op by op.  A deepseek-7b decode step otherwise launches
+some 1,100 kernels and granite-4.0-h's some 3,500, and the host, not the
+card, would set their pace.  The graphs are captured after the first step
+on a cache (which runs op by op) and serve every later step on that cache
+whose split plan is the same.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from ..device import resolve_device
+from ..kernels import decode_attention as DA
 from ..spans import span
 from ..tree import tree_leaves
 from . import layers as L
@@ -110,8 +113,9 @@ def forward_decode(params: Params, cfg, cache: dict, tokens: torch.Tensor,
                    pos, graphs: "DecodeGraphs | None" = None):
     """tokens: (B, 1) integer; pos: the current position (int or 0-d
     tensor, the same for every row).  Returns (hidden (B, 1, d), cache),
-    the cache updated in place.  ``graphs``: an ssm_moe step's CUDA graphs
-    (``DecodeGraphs``), kept by the caller from step to step."""
+    the cache updated in place.  ``graphs``: the step's CUDA graphs
+    (``DecodeGraphs``), kept by the caller from step to step; a step they
+    cannot serve (``DecodeGraphs.serves``) runs op by op."""
     pos = int(pos)
     n_heads = T.params_n_heads(params, cfg)
     x = L.embed(params["embed"], tokens, cfg.embedding_multiplier)
@@ -123,17 +127,15 @@ def forward_decode(params: Params, cfg, cache: dict, tokens: torch.Tensor,
             x = _ssm_decode_block(T.layer(params["blocks"], i), x, cfg,
                                   cache, i)
         return x, cache
-    if cfg.family == "ssm_moe":
-        if graphs is not None and x.is_cuda:
-            return graphs.run(params, cfg, cache, x, pos, n_heads), cache
-        return _ssm_moe_decode(params, cfg, cache, x, pos, n_heads), cache
+    if graphs is not None and x.is_cuda and DecodeGraphs.serves(cfg,
+                                                                 x.shape[0]):
+        return graphs.run(params, cfg, cache, x, pos, n_heads), cache
     if cfg.family == "hybrid":
         return _hybrid_decode(params, cfg, cache, x, pos, n_heads), cache
     if cfg.family == "encdec":
         return _encdec_decode(params, cfg, cache, x, pos, n_heads), cache
-    for i in range(cfg.n_layers):
-        lp = T.layer(params["blocks"], i)
-        x = _attn_decode_block(lp, x, cfg, cache, i, pos, n_heads)
+    for _, fn in _layers(params, cfg, cache, pos, n_heads):
+        x = fn(x)
     return x, cache
 
 
@@ -149,122 +151,183 @@ def _ssm_decode_block(lp, x, cfg, cache, j):
         return T._residual(x, y, cfg)
 
 
-def _ssm_moe_decode(params, cfg, cache, x, pos, n_heads):
-    """granite-4.0-h's layers in ``layer_order``: each mixer against its
-    own stack's cache, then the dropless MoE FFN."""
-    for kind, j in T.layer_order(cfg):
-        if kind == "mamba":
-            lp = T.layer(params["ssm_blocks"], j)
-            x = _ssm_decode_block(lp, x, cfg, cache, j)
-        else:
-            lp = T.layer(params["attn_blocks"], j)
-            x = _attention_mixer(lp, x, cfg, cache, j, pos, n_heads)
-        x = T._serve_ffn(lp, x, cfg, "decode.moe")
-    return x
-
-
-def _attention_mixer(lp, x, cfg, cache, j, pos, n_heads):
-    """ssm_moe attention layer ``j``'s mixer against its ring cache."""
+def _attention_mixer(lp, x, cfg, cache, j, pos, n_heads, pos_dev=None):
+    """Attention layer ``j``'s decode mixer against its ring cache (norm,
+    attention, the scaled residual); ``pos_dev`` as
+    ``layers.attention_decode`` takes it."""
     h = L.rms_norm(x, lp["norm1"], cfg.rms_eps)
     out, _, _ = L.attention_decode(lp["attn"], h, cfg, cache["k"][j],
-                                   cache["v"][j], pos, n_heads)
+                                   cache["v"][j], pos, n_heads, pos_dev)
     return T._residual(x, out, cfg)
 
 
+def _layers(params, cfg, cache, pos, n_heads, pos_dev=None) -> list:
+    """A dense-stack or ssm_moe decode step after the embedding, as
+    (the span its ops open, or None; x -> x) in order: each layer's mixer,
+    then its FFN (granite-4.0-h's layers in ``layer_order``, each mixer
+    against its own stack's cache, each FFN the dropless MoE)."""
+    def mixer(lp, j):
+        return lambda x: _attention_mixer(lp, x, cfg, cache, j, pos,
+                                          n_heads, pos_dev)
+
+    if cfg.family != "ssm_moe":
+        out = []
+        for i in range(cfg.n_layers):
+            lp = T.layer(params["blocks"], i)
+            out += [("decode.attention", mixer(lp, i)),
+                    (None, lambda x, lp=lp: T._apply_mlp_or_moe(lp, x,
+                                                                cfg)[0])]
+        return out
+    out = []
+    for kind, j in T.layer_order(cfg):
+        if kind == "mamba":
+            lp = T.layer(params["ssm_blocks"], j)
+            out.append(("decode.ssm", lambda x, lp=lp, j=j:
+                        _ssm_decode_block(lp, x, cfg, cache, j)))
+        else:
+            lp = T.layer(params["attn_blocks"], j)
+            out.append(("decode.attention", mixer(lp, j)))
+        out.append(("decode.moe", lambda x, lp=lp: T._serve_ffn(
+            lp, x, cfg, "decode.moe")))
+    return out
+
+
 GRAPH_CAPTURES = 0     # DecodeGraphs captures, counted on the host
+GRAPH_REPLAYS = 0      # decode steps DecodeGraphs replayed, on the host
+
+# the call counters a decode step's layers advance (a dict of counts, or
+# an int), which a replay advances as its capture did
+_COUNTED = ((SSM, "SSD_CALLS"), (M, "DROPLESS_CALLS"),
+            (DA, "DECODE_ATTN_LAUNCHES"), (DA, "ROUTE_LAUNCHES"))
+
+
+def _calls() -> dict:
+    """{(module, counter, key or None): count} of ``_COUNTED``."""
+    out = {}
+    for mod, name in _COUNTED:
+        c = getattr(mod, name)
+        if isinstance(c, dict):
+            out.update({(mod, name, k): n for k, n in c.items()})
+        else:
+            out[(mod, name, None)] = c
+    return out
+
+
+def _advance(delta: dict) -> None:
+    """Add ``delta`` (keyed as ``_calls`` keys) to the counters."""
+    for (mod, name, key), n in delta.items():
+        if key is None:
+            setattr(mod, name, getattr(mod, name) + n)
+        else:
+            getattr(mod, name)[key] += n
 
 
 class DecodeGraphs:
-    """CUDA graphs of an ssm_moe decode step on one cache and batch size
-    (of at most ``moe.BATCHED_MAX_TOKENS`` rows, where the MoE takes its
-    batched route; more rows run op by op):
-    each Mamba2 mixer and each MoE FFN captured alone, in layer order, the
-    output of one the static input of the next; an attention mixer runs op
-    by op between them (its ``decode_attn`` takes the position), and the
-    graph after it reads a copy of its output.  ``run`` replays each graph
-    inside the span its ops would have opened, and counts its calls as
-    they would have (``ssm.SSD_CALLS``, ``moe.DROPLESS_CALLS``).  The
-    first step on a new cache or batch size runs op by op, and the graphs
-    are captured after it: capturing runs nothing, so the cache advances
-    once.  The graphs share one memory pool and replay in the order they
-    were captured, as that requires.  ``run`` returns the last graph's
-    static output, which the next step overwrites."""
+    """CUDA graphs of a decode step on one cache, batch size and split plan
+    of the decode-attention op, for the dense stack (dense, vlm and audio
+    families) and ssm_moe up to ``moe.BATCHED_MAX_TOKENS`` rows (where its
+    MoE takes the batched route): ``serves`` says which.  Every other step
+    sizes something on the host (capacity-routed experts, the grouped
+    route's groups) and runs op by op.
+
+    One graph for each layer's mixer and each FFN (``_layers``), captured
+    in order, the output of one the static input of the next, all in one
+    memory pool.  The decode-attention op reads the position from a 0-d
+    int32 tensor on the card, written once a step (``fill_``) before the
+    replays; the host's position picks the op's split plan, so the plan is
+    part of the key.  ``run`` replays each graph inside the span its ops
+    would have opened, and advances the call counters as the captured ops
+    did (``ssm.SSD_CALLS``, ``moe.DROPLESS_CALLS``,
+    ``decode_attention.DECODE_ATTN_LAUNCHES`` and ``ROUTE_LAUNCHES``).  The
+    first step on a new key runs op by op, and the graphs are captured
+    after it: capturing runs nothing, so the cache advances once.
+    Recapturing reuses the pool (the old graphs are dropped only once the
+    new ones hold it) on a side stream, and frees no cached memory.
+    ``run`` returns the last graph's static output, which the next step
+    overwrites."""
 
     def __init__(self):
         self.key = None
-        self.steps = []
+        self.graphs = []      # (span name or None, graph), in order
+        self.x_in = self.out = None
+        self.calls = {}       # the counters a step's captured ops advance
+        self.pos = self.pool = self.stream = None
 
     @staticmethod
-    def _key(params, cache, x):
-        """What the graphs read by address: the params, the cache and the
-        batch size."""
-        return (x.shape[0],) + tuple(t.data_ptr() for t in (
-            *tree_leaves(params), *cache.values()))
+    def serves(cfg, rows: int) -> bool:
+        """Whether a step of ``rows`` rows of ``cfg`` can be captured."""
+        if cfg.family == "ssm_moe":
+            return rows <= M.BATCHED_MAX_TOKENS
+        return cfg.family in ("dense", "vlm", "audio")
+
+    @staticmethod
+    def _key(params, cfg, cache, x, pos, n_heads):
+        """What the graphs hold: the params' addresses, the cache's
+        addresses, shapes and strides (a captured launch holds the slots
+        and strides of its cache, and a smaller cache may land where the
+        last one did), the batch size, and the split plan at ``pos``."""
+        ck = cache.get("k")
+        plan = None if ck is None else DA.decode_plan(
+            ck.dtype, x.shape[0], n_heads, cfg.n_kv_heads, ck.shape[2], pos)
+        return (x.shape[0], x.dtype, plan,
+                *((t.data_ptr(), t.shape, t.stride())
+                  for t in cache.values()),
+                *(t.data_ptr() for t in tree_leaves(params)))
 
     def run(self, params, cfg, cache, x, pos, n_heads):
-        if x.shape[0] > M.BATCHED_MAX_TOKENS:
-            # the grouped route sizes its groups on the host: no graph
-            return _ssm_moe_decode(params, cfg, cache, x, pos, n_heads)
-        if self.key != self._key(params, cache, x):
-            out = _ssm_moe_decode(params, cfg, cache, x, pos, n_heads)
-            self._capture(params, cfg, cache, x)
-            return out
-        for kind, j, lp, graph, inp, out in self.steps:
-            if kind == "attention":
-                x = _attention_mixer(lp, x, cfg, cache, j, pos, n_heads)
-                continue
-            if inp is not x:
-                inp.copy_(x)
-            with span("decode.ssm" if kind == "mamba" else "decode.moe"):
+        global GRAPH_REPLAYS
+        key = self._key(params, cfg, cache, x, pos, n_heads)
+        if key != self.key:
+            for _, fn in _layers(params, cfg, cache, pos, n_heads):
+                x = fn(x)
+            self._capture(params, cfg, cache, x, pos, n_heads)
+            self.key = key
+            return x
+        self.pos.fill_(pos)
+        self.x_in.copy_(x)
+        for name, graph in self.graphs:
+            if name is None:
                 graph.replay()
-            if kind == "mamba":
-                SSM.SSD_CALLS["decode"] += 1
             else:
-                M.DROPLESS_CALLS["batched"] += 1
-            x = out
-        return x
+                with span(name):
+                    graph.replay()
+        _advance(self.calls)
+        GRAPH_REPLAYS += 1
+        return self.out
 
-    def _capture(self, params, cfg, cache, x):
-        self.key, self.steps = None, []
-        calls = (dict(SSM.SSD_CALLS), dict(M.DROPLESS_CALLS))
-        pool = torch.cuda.graph_pool_handle()
-        torch.cuda.synchronize()
-        prev = None
-
-        def graphed(kind, j, lp, fn):
-            nonlocal prev
-            inp = prev if prev is not None else torch.empty_like(x)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool):
-                out = fn(inp)
-            self.steps.append((kind, j, lp, graph, inp, out))
-            prev = out
-
-        for kind, j in T.layer_order(cfg):
-            stack = "ssm_blocks" if kind == "mamba" else "attn_blocks"
-            lp = T.layer(params[stack], j)
-            if kind == "mamba":
-                graphed(kind, j, lp, lambda h, lp=lp, j=j: _ssm_decode_block(
-                    lp, h, cfg, cache, j))
-            else:
-                self.steps.append((kind, j, lp, None, None, None))
-                prev = None
-            graphed("moe", j, lp, lambda h, lp=lp: T._serve_ffn(
-                lp, h, cfg, "decode.moe"))
-        SSM.SSD_CALLS.update(calls[0])
-        M.DROPLESS_CALLS.update(calls[1])
-        self.key = self._key(params, cache, x)
+    def _capture(self, params, cfg, cache, x, pos, n_heads):
         global GRAPH_CAPTURES
+        self.key = None
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(x.device)
+            self.pos = torch.zeros((), dtype=torch.int32, device=x.device)
+        before = _calls()
+        x_in = torch.empty_like(x)
+        graphs, outs = [], [x_in]
+        torch.cuda.synchronize(x.device)
+        with torch.cuda.stream(self.stream):
+            for name, fn in _layers(params, cfg, cache, pos, n_heads,
+                                    self.pos):
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool=self.pool)
+                try:
+                    outs.append(fn(outs[-1]))
+                finally:
+                    graph.capture_end()
+                graphs.append((name, graph))
+        after = _calls()
+        self.calls = {k: n - before[k] for k, n in after.items()
+                      if n != before[k]}
+        _advance({k: -n for k, n in self.calls.items()})
+        self.graphs, self.x_in, self.out = graphs, x_in, outs[-1]
         GRAPH_CAPTURES += 1
 
 
 def _attn_decode_block(lp, x, cfg, cache, i, pos, n_heads):
     """One attention block's decode step against cache k/v ``i``."""
-    h = L.rms_norm(x, lp["norm1"])
-    out, _, _ = L.attention_decode(lp["attn"], h, cfg, cache["k"][i],
-                                   cache["v"][i], pos, n_heads)
-    x, _ = T._apply_mlp_or_moe(lp, x + out, cfg)
-    return x
+    x = _attention_mixer(lp, x, cfg, cache, i, pos, n_heads)
+    return T._apply_mlp_or_moe(lp, x, cfg)[0]
 
 
 def _rec_decode_block(lp, x, cfg, cache, j):

@@ -128,10 +128,12 @@ def softmax_scale(cfg) -> float | None:
 
 def attention_decode(params: Params, x: torch.Tensor, cfg,
                      cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
-                     n_heads: int):
+                     n_heads: int, pos_dev: torch.Tensor | None = None):
     """One-token decode against a (B, S_cache, Hkv, D) ring cache.
-    pos: current position (an int, the same for every row).
-    Returns (out (B,1,d), cache_k, cache_v).
+    pos: current position (an int, the same for every row); ``pos_dev``:
+    None, or the same position in a 0-d int32 tensor on the device, which
+    the op then reads (so that a CUDA graph can replay the call at later
+    positions).  Returns (out (B,1,d), cache_k, cache_v).
 
     Unlike the JAX function, the new k/v are written into ``cache_k`` and
     ``cache_v`` in place (slot ``pos % S_cache``): at full width a copy
@@ -148,7 +150,7 @@ def attention_decode(params: Params, x: torch.Tensor, cfg,
         v = _split_heads(x @ params["wv"], cfg.n_kv_heads, cfg.head_dim)
         out = decode_attn_op(q, k, v, cache_k, cache_v, pos,
                              cfg.rotary_pct, cfg.rope_theta, _NORM_BF16,
-                             softmax_scale(cfg))
+                             softmax_scale(cfg), pos_dev)
         return out.reshape(B, 1, -1) @ params["wo"], cache_k, cache_v
 
 

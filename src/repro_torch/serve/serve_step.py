@@ -31,11 +31,12 @@ def make_prefill_step(cfg, pad_to: int | None = None, device=None):
 
 
 def make_decode_step(cfg, greedy: bool = True, device=None):
-    """On the card an ssm_moe step replays CUDA graphs of its layers
-    (``models.decode.DecodeGraphs``), captured after its first step on a
+    """On the card a step replays CUDA graphs of its layers where they
+    can serve it (``models.decode.DecodeGraphs``: the dense stack, and
+    ssm_moe on its batched route), captured after its first step on a
     cache."""
     device = resolve_device(device)
-    graphs = DecodeGraphs() if cfg.family == "ssm_moe" else None
+    graphs = DecodeGraphs()
 
     @torch.no_grad()
     def decode_step(params, cache, tokens, pos):

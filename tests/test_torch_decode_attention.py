@@ -3,7 +3,8 @@ CPU: its plain twin, reached through ``layers.attention_decode`` and the
 custom op, held against the JAX package's ``attention_decode`` on the same
 numpy inputs (fp32, 1e-5) for every family's attention at smoke size, below
 the ring's length and past its wrap, with rope's bf16 products off and on;
-the op's dispatch (CPU: the twin; meta: the fake; anything else raises);
+the op's dispatch (CPU: the twin; meta: the fake; anything else raises),
+with the position as an int or also as a 0-d tensor;
 the split count and the route as functions of the shapes; and the FLOP and
 byte formulas the dry-run's counter charges it by.  The kernel itself is
 held against the twin on the card (``tests/test_torch_kernels_gpu.py``)."""
@@ -122,12 +123,25 @@ def test_op_on_meta_runs_the_fake():
     assert out.shape == (2, 1, 8, 32) and out.dtype == torch.bfloat16
 
 
+def test_op_on_meta_takes_the_position_as_a_tensor():
+    """The schema's ``pos_dev``: the fake takes a 0-d int32 tensor beside
+    the int."""
+    q, k, v, ck, cv = _inputs(Hq=8, Hkv=2, D=32, dtype=torch.bfloat16,
+                              device="meta")
+    out = da.decode_attn_op(q, k, v, ck, cv, 3, 1.0, 10000.0, False, None,
+                            torch.tensor(3, dtype=torch.int32,
+                                         device="meta"))
+    assert out.device.type == "meta"
+    assert out.shape == (2, 1, 8, 32) and out.dtype == torch.bfloat16
+
+
 @pytest.mark.parametrize("bad", ["meta_wrapper", "q_len", "groups",
                                  "cache_shape", "dtype", "head_dim",
-                                 "pos", "devices"])
+                                 "pos", "devices", "pos_dev_dtype",
+                                 "pos_dev_shape", "pos_dev_device"])
 def test_bad_inputs_raise(bad):
     q, k, v, ck, cv = _inputs()
-    pos = 3
+    pos, pos_dev = 3, None
     if bad == "meta_wrapper":       # the wrapper never takes meta to a twin
         q, k, v, ck, cv = (t.to("meta") for t in (q, k, v, ck, cv))
     elif bad == "q_len":
@@ -144,8 +158,15 @@ def test_bad_inputs_raise(bad):
         pos = -1
     elif bad == "devices":
         ck = ck.to("meta")
+    elif bad == "pos_dev_dtype":
+        pos_dev = torch.tensor(3)
+    elif bad == "pos_dev_shape":
+        pos_dev = torch.tensor([3], dtype=torch.int32)
+    elif bad == "pos_dev_device":
+        pos_dev = torch.tensor(3, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
-        da.decode_attn(q, k, v, ck, cv, pos, 1.0, 10000.0, False)
+        da.decode_attn(q, k, v, ck, cv, pos, 1.0, 10000.0, False, None,
+                       pos_dev)
 
 
 @pytest.mark.parametrize("batch,kv_blocks,n_valid,want", [
@@ -174,6 +195,32 @@ def test_decode_splits_is_a_function_of_the_shapes():
             assert (n, rows) == da.decode_splits(1, blocks, n_valid)
             assert (n - 1) * rows < n_valid <= n * rows
             assert n <= max(1, -(-2 * da.NUM_SMS // blocks))
+
+
+# (dtype, B, Hq, Hkv, S, the positions of a round, its plan): each serving
+# cell's decode attention over its round's positions
+PLAN_CASES = {
+    "chat": (torch.bfloat16, 16, 32, 32, 1152, range(1024, 1151),
+             ("simt", 1, 1, 1152)),
+    "rag": (torch.bfloat16, 4, 32, 32, 2056, range(2048, 2055),
+            ("simt", 1, 3, 704)),
+    "granite_chat": (torch.bfloat16, 16, 32, 8, 1152, range(1024, 1151),
+                     ("simt", 1, 3, 384)),
+    "ring_past_its_wrap": (torch.bfloat16, 4, 16, 1, 2048, range(2048, 2200),
+                           ("mma", 1, 32, 64)),
+}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_the_plan_holds_over_a_round(case):
+    """A CUDA graph of the op serves the positions of one plan: each cell's
+    round takes one, and a single split is sized by the cache, not by the
+    valid slots."""
+    dtype, B, Hq, Hkv, S, positions, want = PLAN_CASES[case]
+    assert {da.decode_plan(dtype, B, Hq, Hkv, S, p) for p in positions} \
+        == {want}
+    route, n_gc, n, rows = want
+    assert n == da.decode_splits(B, Hkv * n_gc, min(positions[0] + 1, S))[0]
 
 
 @pytest.mark.parametrize("dtype,G,route,chunks", [

@@ -883,60 +883,121 @@ def test_decode_attn_kernel_takes_a_set_scale(cuda, dtype, pos):
     assert float((default.float() - want.float()).abs().max()) > 10 * tol
 
 
-def test_granite_decode_graphs_replay_the_eager_step(cuda):
-    """granite-4.0-h-small's smoke model in bf16 on the card: decode steps
-    replayed from CUDA graphs (``DecodeGraphs``, captured after the first
-    step on the cache, which runs op by op) give the bits of the op-by-op
-    step, logits and cache, step after step, and its spans and call
-    counters."""
+# (arch, prompt, cache slots, positions, the positions that capture): the
+# smoke models in bf16, 4 rows; deepseek's has 4 kv heads, so 16 blocks
+# take one split up to 64 valid slots and two from position 64 on
+GRAPH_CASES = {
+    "granite": ("granite-4.0-h-small", 8, 20, range(8, 12), {8}),
+    "dense": ("deepseek-7b", 8, 20, range(8, 12), {8}),
+    # a ring of 12 slots: positions 12 .. 15 wrap to slots 0 .. 3
+    "dense_ring_wraps": ("deepseek-7b", 8, 12, range(8, 16), {8}),
+    # the split plan changes at position 64: captured again, once
+    "dense_plan_changes": ("deepseek-7b", 60, 80, range(60, 68), {60, 64}),
+}
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_granite_decode_graphs_replay_the_eager_step(cuda, case):
+    """A smoke model (granite-4.0-h-small's, deepseek-7b's dense stack) in
+    bf16 on the card: decode steps replayed from CUDA graphs
+    (``DecodeGraphs``, captured after the first step on a cache or split
+    plan, which runs op by op) give the bits of the op-by-op step, logits
+    and cache, step after step, and its spans and call counters; each
+    capture and replay counted."""
 
     import contextlib
 
     from repro_torch import spans
     from repro_torch.configs import ARCHS, smoke_variant
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.models import forward_decode, init_model
     from repro_torch.models import decode as D
     from repro_torch.models import layers as L
     from repro_torch.models import moe as M
     from repro_torch.models import ssm as SSM
     from repro_torch.serve import make_decode_step, make_prefill_step
-    cfg = dataclasses.replace(smoke_variant(ARCHS["granite-4.0-h-small"]),
+    arch, prompt, slots, positions, capturing = GRAPH_CASES[case]
+    cfg = dataclasses.replace(smoke_variant(ARCHS[arch]),
                               param_dtype="bfloat16", attn_impl="flash")
+    granite = cfg.family == "ssm_moe"
+    n_attn = cfg.layer_types.count("attention") if granite else cfg.n_layers
     gen = torch.Generator(device=cuda).manual_seed(0)
     params = init_model(gen, cfg, device=cuda)
-    toks = torch.randint(0, 256, (4, 12), generator=gen, device=cuda,
-                         dtype=torch.int32)
-    _, cache_g = make_prefill_step(cfg, pad_to=20, device=cuda)(
-        params, {"tokens": toks[:, :8]})
+    toks = torch.randint(0, 256, (4, positions[-1] + 1), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    _, cache_g = make_prefill_step(cfg, pad_to=slots, device=cuda)(
+        params, {"tokens": toks[:, :prompt]})
     cache_e = {k: v.clone() for k, v in cache_g.items()}
     graphed = make_decode_step(cfg, device=cuda)
-    captures = D.GRAPH_CAPTURES
-    for pos in range(8, 12):
+    captures, replays = D.GRAPH_CAPTURES, D.GRAPH_REPLAYS
+    for pos in positions:
         tok = toks[:, pos:pos + 1]
         SSM.SSD_CALLS.update(prefill=0, decode=0)
         M.DROPLESS_CALLS.update(batched=0, grouped=0)
+        launches = da.DECODE_ATTN_LAUNCHES
         spans.reset()
-        # the first step captures: under a profiler its capture would
-        # enter the spans a second time
+        # a capture under a profiler would enter the spans a second time
         ctx = torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU]) if pos > 8 \
+            torch.profiler.ProfilerActivity.CPU]) if pos not in capturing \
             else contextlib.nullcontext()
         with ctx:
             _, lg_g, cache_g = graphed(params, cache_g, tok, pos)
         rec = spans.record()
-        assert (SSM.SSD_CALLS["decode"], M.DROPLESS_CALLS["batched"]) \
-            == (2, 3)
-        if pos > 8:
-            assert (rec["decode.ssm"]["count"],
-                    rec["decode.moe"]["count"]) == (2, 3)
-        assert D.GRAPH_CAPTURES == captures + 1
+        assert da.DECODE_ATTN_LAUNCHES == launches + n_attn
+        if granite:
+            assert (SSM.SSD_CALLS["decode"], M.DROPLESS_CALLS["batched"]) \
+                == (2, 3)
+        if pos not in capturing:
+            want = {"decode.attention": n_attn}
+            if granite:
+                want.update({"decode.ssm": 2, "decode.moe": 3})
+            assert {k: rec[k]["count"] for k in want} == want
+        done = [p for p in positions if p <= pos]
+        assert D.GRAPH_CAPTURES == captures + len(capturing.intersection(
+            done))
+        assert D.GRAPH_REPLAYS == replays + len(set(done) - capturing)
         with torch.no_grad():
             h, cache_e = forward_decode(params, cfg, cache_e, tok, pos)
             lg_e = L.lm_logits(params["embed"], h, cfg)
-        assert torch.equal(lg_g, lg_e)
+        assert torch.equal(lg_g, lg_e), pos
         for k in cache_e:
-            assert torch.equal(cache_g[k], cache_e[k]), k
+            assert torch.equal(cache_g[k], cache_e[k]), (pos, k)
     spans.reset()
+
+
+# (B, S_cache, Hq, n_kv, D, rotary_pct, rope_theta, pos): each route with
+# and without the split and its combine, and a position past the ring
+DEVICE_POS_CASES = [
+    (16, 1152, 32, 32, 128, 1.0, 1e4, 1100),  # chat: CUDA cores, one split
+    (4, 2056, 32, 32, 128, 1.0, 1e4, 2050),   # rag: 3 splits and combine
+    (4, 1056, 64, 4, 128, 1.0, 1e6, 1055),    # qwen3-moe: bf16 tensor cores
+    (4, 2048, 16, 1, 256, 1.0, 1e4, 2100),    # recurrentgemma: past S
+    (16, 1152, 32, 8, 128, 0.0, 1e4, 1151),   # granite: no rope, G 4
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DEVICE_POS_CASES)
+def test_decode_attn_reads_its_position_from_the_card(cuda, case, dtype):
+    """Given the position in a 0-d int32 tensor on the card, and as host
+    int the position before it (the same split plan, another slot), the
+    kernel gives the int path's bits at the card's position: the output,
+    the slot it writes and every other slot."""
+    from repro_torch.kernels import decode_attention as da
+    B, S, Hq, n_kv, D, pct, theta, pos = case
+    assert da.decode_plan(dtype, B, Hq, n_kv, S, pos) \
+        == da.decode_plan(dtype, B, Hq, n_kv, S, pos - 1)
+    q, k, v, ck, cv = _decode_inputs(case, dtype, cuda)
+    rk, rv = ck.clone(), cv.clone()
+    want = da.decode_attn(q, k, v, rk, rv, pos, pct, theta, False)
+    before = da.DECODE_ATTN_LAUNCHES
+    got = da.decode_attn_op(q, k, v, ck, cv, pos - 1, pct, theta, False,
+                            None, torch.tensor(pos, dtype=torch.int32,
+                                               device=cuda))
+    torch.cuda.synchronize()
+    assert da.DECODE_ATTN_LAUNCHES == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(ck, rk) and torch.equal(cv, rv)
 
 
 def test_decode_attn_is_bit_equal_on_a_repeat(cuda):
