@@ -1157,7 +1157,7 @@ def phase_decode_attention_times() -> dict:
         if route != "simt":
             with forced_decode_route(da, "simt"):
                 r["simt_device_ms"] = _device_ms_and_launches(call)[0]
-        inv, rot = da._inv_freq(q.device, D, pct, theta)
+        inv, rot = da.rope_table(q.device, D, pct, theta)
         lib = lambda: decode_library(q, k, v, lk, lv, pos, inv, rot)
         r["library_max_abs_err"] = float(
             (lib().float() - want.float()).abs().max())

@@ -1,5 +1,7 @@
 """The plain attention mathematics that the model layers and the kernels'
-plain twins share: rotary embeddings and grouped-query softmax attention.
+plain twins share: rotary embeddings and grouped-query softmax attention,
+and the rope table on each device that ``rope`` and the decode-attention
+kernel both read.
 
 It imports nothing of the port, so ``models.layers`` (which re-exports it)
 and ``kernels.decode_attention`` (whose twin is built from it) both depend
@@ -23,17 +25,37 @@ def rope_freqs(head_dim: int, pct: float, theta: float):
     return 1.0 / (theta ** (np.arange(0, rot, 2, np.float32) / rot))
 
 
+# (device, D, rotary_pct, rope_theta) -> (``rope_freqs``' values as an fp32
+# tensor on the device, or None, and the rotated width).  A table is made
+# at its first call on a device, the one host-to-device copy of it; every
+# later call, and a CUDA-graph capture, finds it here.  The step before a
+# capture runs op by op (``models.decode.DecodeGraphs``), so the table
+# exists before any capture; keep it so, as a copy cannot be captured.
+_ROPE_TABLES: dict = {}
+
+
+def rope_table(device: torch.device, head_dim: int, pct: float,
+               theta: float):
+    """(inverse frequencies on ``device`` or None, rotated width)."""
+    key = (device, head_dim, pct, theta)
+    got = _ROPE_TABLES.get(key)
+    if got is None:
+        inv = rope_freqs(head_dim, pct, theta)
+        got = (None, 0) if inv is None else (
+            torch.from_numpy(np.ascontiguousarray(inv)).to(device),
+            2 * inv.shape[0])
+        _ROPE_TABLES[key] = got
+    return got
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, pct: float,
          theta: float, bf16: bool) -> torch.Tensor:
     """x: (..., S, H, D); positions: (..., S) integer. Rotates the first
     pct*D dims pairwise (half-split convention).  ``bf16``: cos, sin and
     the rotation's products in x's dtype; else in fp32, rounded once."""
-    D = x.shape[-1]
-    inv = rope_freqs(D, pct, theta)
+    inv, rot = rope_table(x.device, x.shape[-1], pct, theta)
     if inv is None:
         return x
-    rot = inv.shape[0] * 2
-    inv = torch.from_numpy(inv).to(x.device)
     ang = positions[..., :, None].float() * inv          # (..., S, rot/2)
     cos = torch.cos(ang)[..., :, None, :]                # (..., S, 1, rot/2)
     sin = torch.sin(ang)[..., :, None, :]

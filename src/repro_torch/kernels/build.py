@@ -6,6 +6,13 @@ the checkout, at first use, and loaded with ``ctypes``.  The hash covers
 every file under ``csrc/`` and the compiler flags, so an edited source is
 rebuilt and a stale library is never loaded.  Nothing here runs when the
 module is imported.
+
+It is also the one seam through which a wrapper reaches its library:
+``on_card`` sends a call to its kernel or to its plain twin by the
+device, ``kernel`` binds a C function once (its arguments, the stream
+last, and an ``int`` ``cudaError`` return), and ``launch`` calls it on a
+tensor's device and current stream and raises where it failed.  The
+dtype codes and card constants that several wrappers share are here too.
 """
 from __future__ import annotations
 
@@ -16,6 +23,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("flash_fwd", "flash_bwd", "quantize", "checksum", "shard_pack",
@@ -23,7 +32,17 @@ SOURCES = ("flash_fwd", "flash_bwd", "quantize", "checksum", "shard_pack",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+# the kernels' dtype argument
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the widest head the attention kernels take
+MAX_HEAD_DIM = 256
+# The H100's SM count, fixed here (not read from the card) so that the
+# chunking and split plans, and with them every rounding, depend on the
+# shape alone.
+NUM_SMS = 132
+
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[tuple[str, str], object] = {}
 
 
 def cuda_tool(name: str) -> str | None:
@@ -94,3 +113,42 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
+
+
+def kernel(lib: str, name: str, argtypes):
+    """The C function ``name`` of ``csrc/<lib>.cu``, bound once: its
+    ``argtypes`` with the stream appended, returning its ``cudaError``."""
+    fn = _FNS.get((lib, name))
+    if fn is None:
+        fn = getattr(load(lib), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        _FNS[lib, name] = fn
+    return fn
+
+
+def on_card(device: torch.device, who: str = "") -> bool:
+    """True where a call on ``device`` launches its kernel, False on the
+    CPU, where its wrapper computes the plain twin; raises for any other
+    device (``who`` opens the message)."""
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"{who} runs on cuda or cpu, not {device}".lstrip())
+    return True
+
+
+def launch(fn, device: torch.device, *args, what: str) -> None:
+    """Call a function that ``kernel`` bound with ``args`` and the current
+    stream of ``device`` under its device guard.  The stream's raw handle
+    is read at each call, without building a ``Stream`` object, so a
+    launch inside a CUDA-graph capture lands on the capture's stream."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    raise_on_error(err, what)
+
+
+def raise_on_error(err: int, what: str) -> None:
+    """A non-zero ``cudaError`` from ``what``'s launch as a RuntimeError."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")

@@ -28,6 +28,8 @@ MASK32 = 0xFFFFFFFF
 # Words per chunk of the twin: its int64 temporaries stay a few times 32 MB
 # however large the buffer.
 CHUNK_WORDS = 1 << 22
+# the library function's arguments before the stream (``build.kernel``)
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p)
 
 CHECKSUM_LAUNCHES = 0
 
@@ -88,30 +90,15 @@ def checksum(x: torch.Tensor) -> torch.Tensor:
     4-byte aligned, and a tensor that is not is refused, not copied."""
     u8 = byte_view(x)
     dev = u8.device
-    if dev.type == "cpu":
+    if not build.on_card(dev):
         return checksum_reference(u8)
-    if dev.type != "cuda":
-        raise ValueError(f"runs on cuda or cpu, not {dev}")
     if u8.numel() == 0:               # the empty sum; nothing to launch
         return torch.zeros((), dtype=torch.int32, device=dev)
     if u8.data_ptr() % 4:
         raise ValueError("the checksum kernel needs a 4-byte aligned tensor")
     out = torch.empty((), dtype=torch.int32, device=dev)
-    fn = _kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(u8.data_ptr(), u8.numel(), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"checksum kernel launch failed: cudaError {err}")
+    build.launch(build.kernel("checksum", "checksum_words", _ARGTYPES), dev,
+                 u8.data_ptr(), u8.numel(), out.data_ptr(), what="checksum")
     global CHECKSUM_LAUNCHES
     CHECKSUM_LAUNCHES += 1
     return out
-
-
-def _kernel():
-    fn = build.load("checksum").checksum_words
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                       ctypes.c_void_p]
-    return fn

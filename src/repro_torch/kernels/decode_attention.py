@@ -39,26 +39,24 @@ from __future__ import annotations
 import ctypes
 import math
 
-import numpy as np
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from . import build
-from .attention_math import gqa_scores_softmax_v, rope, rope_freqs
-from .flash_attention import _DTYPE_CODES, MAX_HEAD_DIM, NUM_SMS
+from .attention_math import gqa_scores_softmax_v, rope, rope_table
+from .build import DTYPE_CODES, MAX_HEAD_DIM, NUM_SMS
 
 MMA_MAX_GROUP = 16
 SIMT_GROUP_CHUNK = 4
 # the fewest valid slots a split takes (the tensor-core route's tile)
 SPLIT_ROWS = 64
 _ROUTE_CODES = {"simt": 0, "mma": 1}
+# the library function's arguments before the stream (``build.kernel``)
+_ARGTYPES = (*[ctypes.c_void_p] * 9, ctypes.POINTER(ctypes.c_int64),
+             ctypes.c_int, ctypes.c_int, ctypes.c_float)
 
 DECODE_ATTN_LAUNCHES = 0
 ROUTE_LAUNCHES = {"simt": 0, "mma": 0}
-
-# (device, D, rotary_pct, rope_theta) -> the fp32 inverse frequencies on
-# the card, made once: the decode path then copies nothing to the card.
-_INV_FREQ: dict = {}
 
 
 def decode_attention_reference(q, k, v, cache_k, cache_v, pos, rotary_pct,
@@ -104,7 +102,7 @@ def _check(q, k, v, cache_k, cache_v, pos, pos_dev=None):
     if not q.dtype == k.dtype == v.dtype == cache_k.dtype == cache_v.dtype:
         raise ValueError(f"dtype mismatch: {q.dtype}, {k.dtype}, {v.dtype}, "
                          f"{cache_k.dtype}, {cache_v.dtype}")
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in DTYPE_CODES:
         raise ValueError(f"unsupported dtype {q.dtype}")
     if not q.device == k.device == v.device == cache_k.device \
             == cache_v.device:
@@ -167,19 +165,6 @@ def decode_plan(dtype, batch: int, Hq: int, Hkv: int, S: int, pos: int) \
     return route, n_gc, n_split, rows
 
 
-def _inv_freq(device, D: int, pct: float, theta: float):
-    """(the inverse frequencies on ``device``, or None, and rot)."""
-    key = (device, D, pct, theta)
-    got = _INV_FREQ.get(key)
-    if got is None:
-        inv = rope_freqs(D, pct, theta)
-        got = (None, 0) if inv is None else (
-            torch.from_numpy(np.ascontiguousarray(inv)).to(device),
-            2 * inv.shape[0])
-        _INV_FREQ[key] = got
-    return got
-
-
 def decode_attn(q, k, v, cache_k, cache_v, pos: int, rotary_pct: float,
                 rope_theta: float, rope_bf16: bool,
                 scale: float | None = None, pos_dev=None):
@@ -194,13 +179,11 @@ def decode_attn(q, k, v, cache_k, cache_v, pos: int, rotary_pct: float,
     16-byte aligned pointers and strides, and D * itemsize must be a
     multiple of 16."""
     _check(q, k, v, cache_k, cache_v, pos, pos_dev)
-    if q.device.type == "cpu":
+    if not build.on_card(q.device, "decode_attn"):
         return decode_attention_reference(
             q, k, v, cache_k, cache_v,
             pos if pos_dev is None else int(pos_dev), rotary_pct,
             rope_theta, rope_bf16, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attn runs on cuda or cpu, not {q.device}")
     B, _, Hq, D = q.shape
     S, Hkv = cache_k.shape[1], cache_k.shape[2]
     G = Hq // Hkv
@@ -222,41 +205,25 @@ def decode_attn(q, k, v, cache_k, cache_v, pos: int, rotary_pct: float,
         raise ValueError("decode_attn on the card needs contiguous last "
                          "dimensions, 16-byte aligned pointers and strides "
                          "and D * itemsize a multiple of 16")
-    inv, rot = _inv_freq(q.device, D, rotary_pct, rope_theta)
+    inv, rot = rope_table(q.device, D, rotary_pct, rope_theta)
     out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=q.device)
     part = torch.empty(B * Hq * n_split * (D + 2), dtype=torch.float32,
                        device=q.device) if n_split > 1 else None
     args = (ctypes.c_int64 * 23)(*strides, B, Hkv, G, D, S, pos, rot,
                                  n_split, split_rows, n_gc, int(rope_bf16))
-    with torch.cuda.device(q.device):
-        # the current stream's handle, without building a Stream object
-        # (4 of the wrapper's ~47 us on an H100 host)
-        stream = torch._C._cuda_getCurrentRawStream(q.device.index)
-        err = _kernel()(*ptrs, out.data_ptr(),
-                        None if part is None else part.data_ptr(),
-                        None if inv is None else inv.data_ptr(),
-                        None if pos_dev is None else pos_dev.data_ptr(),
-                        args,
-                        _DTYPE_CODES[q.dtype], _ROUTE_CODES[route],
-                        math.log2(math.e) / math.sqrt(D) if scale is None
-                        else math.log2(math.e) * scale, stream)
-    if err != 0:
-        raise RuntimeError(f"decode_attn kernel launch failed ({route} "
-                           f"route): cudaError {err}")
+    build.launch(build.kernel("decode_attn", "decode_attn", _ARGTYPES),
+                 q.device, *ptrs, out.data_ptr(),
+                 None if part is None else part.data_ptr(),
+                 None if inv is None else inv.data_ptr(),
+                 None if pos_dev is None else pos_dev.data_ptr(), args,
+                 DTYPE_CODES[q.dtype], _ROUTE_CODES[route],
+                 math.log2(math.e) / math.sqrt(D) if scale is None
+                 else math.log2(math.e) * scale,
+                 what=f"decode_attn ({route} route)")
     global DECODE_ATTN_LAUNCHES
     DECODE_ATTN_LAUNCHES += 1
     ROUTE_LAUNCHES[route] += 1
     return out
-
-
-def _kernel():
-    fn = build.load("decode_attn").decode_attn
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 9 + [
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_void_p]
-    return fn
 
 
 # ----------------------------- cost -----------------------------

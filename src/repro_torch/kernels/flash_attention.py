@@ -47,10 +47,9 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from . import build
+from .build import DTYPE_CODES, MAX_HEAD_DIM, NUM_SMS
 
 NEG = -1e30
-MAX_HEAD_DIM = 256
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = 0
 FWD_ROUTE_LAUNCHES = {"wgmma": 0, "mma": 0, "fp32": 0}
@@ -59,9 +58,14 @@ BWD_DKV_LAUNCHES = 0
 BWD_ROUTE_LAUNCHES = {"wgmma": 0, "mma": 0, "fp32": 0}
 _ROUTE_CODES = {"fp32": 0, "mma": 1, "wgmma": 2}
 WG_HEAD_DIMS = (64, 128, 256)
-# The H100's SM count, fixed here (not read from the card) so that the
-# chunking, and with it every rounding, depends on the shape alone.
-NUM_SMS = 132
+# each library function's arguments before the stream (``build.kernel``)
+_FWD_ARGTYPES = (*[ctypes.c_void_p] * 5, ctypes.POINTER(ctypes.c_int64),
+                 ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float)
+_BWD_ARGTYPES = (*[ctypes.c_void_p] * 9, ctypes.POINTER(ctypes.c_int64),
+                 ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_float)
 
 
 def _allow(S, Sk, causal, window, prefix, device):
@@ -130,7 +134,7 @@ def _check(q, k, v):
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"dtype mismatch: {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in DTYPE_CODES:
         raise ValueError(f"unsupported dtype {q.dtype}")
     if not q.device == k.device == v.device:
         raise ValueError("q, k and v lie on different devices")
@@ -140,9 +144,6 @@ def _check(q, k, v):
 
 
 def _check_cuda(*ts):
-    if ts[0].device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu, not "
-                         f"{ts[0].device}")
     if any(t.stride(-1) != 1 for t in ts):
         raise ValueError("flash attention needs a contiguous last dimension")
 
@@ -152,7 +153,7 @@ def flash_fwd(q, k, v, *, causal=True, window=0, prefix=0, scale=None):
     contiguous last dimension.  Returns (out (B, n_kv, G, S, D) in q's
     dtype, lse (B, n_kv, G, S) fp32).  ``scale`` defaults to 1/sqrt(D)."""
     _check(q, k, v)
-    if q.device.type == "cpu":
+    if not build.on_card(q.device, "flash attention"):
         return flash_fwd_reference(q, k, v, causal=causal, window=window,
                                    prefix=prefix, scale=scale)
     _check_cuda(q, k, v)
@@ -170,16 +171,12 @@ def flash_fwd(q, k, v, *, causal=True, window=0, prefix=0, scale=None):
     strides = (ctypes.c_int64 * 14)(*all_strides)
     route = _fwd_route(q.dtype, tuple(q.shape),
                        [t.data_ptr() for t in (q, k, v, out)], all_strides)
-    fn = _fwd_kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), dims, strides, _DTYPE_CODES[q.dtype],
-                 _ROUTE_CODES[route], int(causal), int(window), int(prefix),
-                 scale, stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed ({route} "
-                           f"route): cudaError {err}")
+    build.launch(build.kernel("flash_fwd", "flash_fwd", _FWD_ARGTYPES),
+                 q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), lse.data_ptr(), dims, strides,
+                 DTYPE_CODES[q.dtype], _ROUTE_CODES[route], int(causal),
+                 int(window), int(prefix), scale,
+                 what=f"flash_fwd ({route} route)")
     global LAUNCHES
     LAUNCHES += 1
     FWD_ROUTE_LAUNCHES[route] += 1
@@ -202,7 +199,7 @@ def flash_bwd(q, k, v, do, lse, delta, *, causal=True, window=0, prefix=0,
                              f"{t.dtype} {tuple(t.shape)}")
     if not q.device == do.device == lse.device == delta.device:
         raise ValueError("flash_bwd's inputs lie on different devices")
-    if q.device.type == "cpu":
+    if not build.on_card(q.device, "flash attention"):
         return flash_bwd_reference(q, k, v, do, lse, delta, causal=causal,
                                    window=window, prefix=prefix, scale=scale)
     _check_cuda(q, k, v, do)
@@ -230,26 +227,20 @@ def flash_bwd(q, k, v, do, lse, delta, *, causal=True, window=0, prefix=0,
         *in_strides, *dq.stride()[:4], *dk.stride()[:3], *dv.stride()[:3])
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dims, strides, _DTYPE_CODES[q.dtype],
+            dv.data_ptr(), dims, strides, DTYPE_CODES[q.dtype],
             _ROUTE_CODES[route], chunks,
             None if part is None else part.data_ptr(), int(causal),
             int(window), int(prefix),
             float(scale if scale else 1.0 / math.sqrt(D)))
     global BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _bwd_kernel("flash_bwd_dq")(*args, stream)
-        if err != 0:
-            raise RuntimeError(f"flash_bwd dq kernel launch failed "
-                               f"({route} route): cudaError {err}")
-        BWD_DQ_LAUNCHES += 1
-        BWD_ROUTE_LAUNCHES[route] += 1
-        err = _bwd_kernel("flash_bwd_dkv")(*args, stream)
-        if err != 0:
-            raise RuntimeError(f"flash_bwd dk/dv kernel launch failed "
-                               f"({route} route): cudaError {err}")
-        BWD_DKV_LAUNCHES += 1
-        BWD_ROUTE_LAUNCHES[route] += 1
+    build.launch(build.kernel("flash_bwd", "flash_bwd_dq", _BWD_ARGTYPES),
+                 q.device, *args, what=f"flash_bwd dq ({route} route)")
+    BWD_DQ_LAUNCHES += 1
+    BWD_ROUTE_LAUNCHES[route] += 1
+    build.launch(build.kernel("flash_bwd", "flash_bwd_dkv", _BWD_ARGTYPES),
+                 q.device, *args, what=f"flash_bwd dk/dv ({route} route)")
+    BWD_DKV_LAUNCHES += 1
+    BWD_ROUTE_LAUNCHES[route] += 1
     return dq, dk, dv
 
 
@@ -286,29 +277,6 @@ def _dkv_chunks(B, H, G, Sk, D) -> int:
     rows = 64 if D == 256 else 128
     blocks = -(-Sk // rows) * B * H
     return max(1, min(G, -(-4 * NUM_SMS // blocks)))
-
-
-def _fwd_kernel():
-    fn = build.load("flash_fwd").flash_fwd
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    return fn
-
-
-def _bwd_kernel(name):
-    fn = getattr(build.load("flash_bwd"), name)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 9 + [
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_void_p]
-    return fn
 
 
 # ----------------------------- custom ops -----------------------------

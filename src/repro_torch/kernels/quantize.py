@@ -33,10 +33,13 @@ import numpy as np
 import torch
 
 from . import build
+from .build import DTYPE_CODES
 
 GROUP = 1024
 BLOCK_GROUPS = 8
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# each library function's arguments before the stream (``build.kernel``)
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_int)
 
 QUANT_LAUNCHES = 0
 DEQUANT_LAUNCHES = 0
@@ -74,10 +77,8 @@ def _cuda_ready(*ts):
     dev = ts[0].device
     if any(t.device != dev for t in ts):
         raise ValueError("tensors lie on different devices")
-    if dev.type == "cpu":
+    if not build.on_card(dev):
         return False
-    if dev.type != "cuda":
-        raise ValueError(f"runs on cuda or cpu, not {dev}")
     for t in ts:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("the kernel needs contiguous, 16-byte aligned "
@@ -89,20 +90,17 @@ def quantize(groups):
     """groups: (n_groups, 1024) fp32 or bf16.  Returns (q int8 of the same
     shape, scales (n_groups, 1) fp32)."""
     _check_groups(groups, "groups")
-    if groups.dtype not in _DTYPE_CODES:
+    if groups.dtype not in DTYPE_CODES:
         raise ValueError(f"unsupported dtype {groups.dtype}")
     if not _cuda_ready(groups):
         return quantize_reference(groups)
     n = groups.shape[0]
     q = torch.empty(groups.shape, dtype=torch.int8, device=groups.device)
     scales = torch.empty((n, 1), dtype=torch.float32, device=groups.device)
-    fn = _kernel("quantize")
-    with torch.cuda.device(groups.device):
-        stream = torch.cuda.current_stream(groups.device).cuda_stream
-        err = fn(groups.data_ptr(), q.data_ptr(), scales.data_ptr(), n,
-                 _DTYPE_CODES[groups.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"quantize kernel launch failed: cudaError {err}")
+    build.launch(build.kernel("quantize", "quantize", _ARGTYPES),
+                 groups.device, groups.data_ptr(), q.data_ptr(),
+                 scales.data_ptr(), n, DTYPE_CODES[groups.dtype],
+                 what="quantize")
     global QUANT_LAUNCHES
     QUANT_LAUNCHES += 1
     return q, scales
@@ -118,31 +116,17 @@ def dequantize(q, scales, out_dtype=torch.float32):
         raise ValueError(f"dequantize takes int8 q and fp32 (n_groups, 1) "
                          f"scales, got {q.dtype} {scales.dtype} "
                          f"{tuple(scales.shape)}")
-    if out_dtype not in _DTYPE_CODES:
+    if out_dtype not in DTYPE_CODES:
         raise ValueError(f"unsupported out_dtype {out_dtype}")
     if not _cuda_ready(q, scales):
         return dequantize_reference(q, scales, out_dtype)
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
-    fn = _kernel("dequantize")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), scales.data_ptr(), out.data_ptr(), q.shape[0],
-                 _DTYPE_CODES[out_dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"dequantize kernel launch failed: cudaError "
-                           f"{err}")
+    build.launch(build.kernel("quantize", "dequantize", _ARGTYPES),
+                 q.device, q.data_ptr(), scales.data_ptr(), out.data_ptr(),
+                 q.shape[0], DTYPE_CODES[out_dtype], what="dequantize")
     global DEQUANT_LAUNCHES
     DEQUANT_LAUNCHES += 1
     return out
-
-
-def _kernel(name):
-    fn = getattr(build.load("quantize"), name)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int,
-                                               ctypes.c_void_p]
-    return fn
 
 
 # ----------------------------- custom ops -----------------------------

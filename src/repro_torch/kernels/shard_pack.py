@@ -20,6 +20,9 @@ import torch
 from . import build
 
 CELL_COLS = 128
+# each library function's arguments before the stream (``build.kernel``)
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_int64, ctypes.c_int64)
 
 PACK_LAUNCHES = 0
 UNPACK_LAUNCHES = 0
@@ -43,30 +46,12 @@ def _check(t: torch.Tensor, dims: int, name: str) -> bool:
     if t.dim() != dims or t.shape[-1] != CELL_COLS or t.dtype != torch.int32:
         raise ValueError(f"{name} must be int32 with {dims} dims, the last "
                          f"{CELL_COLS}; got {t.dtype} {tuple(t.shape)}")
-    if t.device.type == "cpu":
+    if not build.on_card(t.device):
         return False
-    if t.device.type != "cuda":
-        raise ValueError(f"runs on cuda or cpu, not {t.device}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError("the kernel needs a contiguous, 16-byte aligned "
                          "tensor")
     return True
-
-
-def _launch(name: str, src: torch.Tensor, dst: torch.Tensor, width: int,
-            cpt: int, cell_rows: int) -> None:
-    fn = getattr(build.load("shard_pack"), name)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
-    cell_bytes = cell_rows * CELL_COLS * 4
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = fn(src.data_ptr(), dst.data_ptr(), width, cpt, cell_bytes,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
 def shard_pack(cells: torch.Tensor, width: int) -> torch.Tensor:
@@ -81,7 +66,9 @@ def shard_pack(cells: torch.Tensor, width: int) -> torch.Tensor:
     cpt = n_cells // width
     packed = torch.empty((width, cpt) + tuple(cells.shape[1:]),
                          dtype=cells.dtype, device=cells.device)
-    _launch("shard_pack", cells, packed, width, cpt, cells.shape[1])
+    build.launch(build.kernel("shard_pack", "shard_pack", _ARGTYPES),
+                 cells.device, cells.data_ptr(), packed.data_ptr(), width,
+                 cpt, cells.shape[1] * CELL_COLS * 4, what="shard_pack")
     global PACK_LAUNCHES
     PACK_LAUNCHES += 1
     return packed
@@ -95,7 +82,9 @@ def shard_unpack(packed: torch.Tensor) -> torch.Tensor:
     width, cpt = packed.shape[:2]
     cells = torch.empty((width * cpt,) + tuple(packed.shape[2:]),
                         dtype=packed.dtype, device=packed.device)
-    _launch("shard_unpack", packed, cells, width, cpt, packed.shape[2])
+    build.launch(build.kernel("shard_pack", "shard_unpack", _ARGTYPES),
+                 packed.device, packed.data_ptr(), cells.data_ptr(), width,
+                 cpt, packed.shape[2] * CELL_COLS * 4, what="shard_unpack")
     global UNPACK_LAUNCHES
     UNPACK_LAUNCHES += 1
     return cells

@@ -63,6 +63,8 @@ NO_COUNTERPART = {
         (PALLAS, "kernels/csrc/flash_bwd.cu"),
     "kernels/flash_attention.py:_bwd_dq_kernel":
         (PALLAS, "kernels/csrc/flash_bwd.cu"),
+    "kernels/flash_attention.py:_fwd_kernel":
+        (PALLAS, "kernels/csrc/flash_fwd.cu"),
     "kernels/flash_attention.py:_mask_block":
         (PALLAS, "kernels/flash_attention.py:_allow"),
     "kernels/flash_attention.py:flash_bwd_pallas":

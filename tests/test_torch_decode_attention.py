@@ -20,6 +20,7 @@ from repro.configs import smoke_variant as jax_smoke
 from repro.models import layers as JL
 from repro_torch.configs import ARCHS, smoke_variant
 from repro_torch.convert import params_from_numpy
+from repro_torch.kernels import attention_math as am
 from repro_torch.kernels import decode_attention as da
 from repro_torch.launch.op_cost import OpCost
 from repro_torch.models import layers as TL
@@ -259,12 +260,31 @@ def test_cost_formulas_charge_the_valid_slots(pos):
     assert (cost.bytes < 2 * ck.numel() * 2) == (pos < S)
 
 
-def test_inverse_frequencies_are_made_once():
-    da._INV_FREQ.clear()
-    a = da._inv_freq(torch.device("cpu"), 128, 1.0, 10000.0)
-    b = da._inv_freq(torch.device("cpu"), 128, 1.0, 10000.0)
+def test_inverse_frequencies_are_made_once(monkeypatch):
+    """The one rope table that ``rope`` and ``decode_attn`` share."""
+    monkeypatch.setattr(am, "_ROPE_TABLES", {})
+    a = am.rope_table(torch.device("cpu"), 128, 1.0, 10000.0)
+    b = am.rope_table(torch.device("cpu"), 128, 1.0, 10000.0)
     assert a[0] is b[0] and a[1] == 128
     np.testing.assert_array_equal(a[0].numpy(),
                                   TL.rope_freqs(128, 1.0, 10000.0))
-    assert da._inv_freq(torch.device("cpu"), 128, 0.0, 10000.0) == (None, 0)
-    assert da._inv_freq(torch.device("cpu"), 80, 0.25, 10000.0)[1] == 20
+    assert am.rope_table(torch.device("cpu"), 128, 0.0, 10000.0) \
+        == (None, 0)
+    assert am.rope_table(torch.device("cpu"), 80, 0.25, 10000.0)[1] == 20
+
+
+def test_rope_copies_its_table_to_a_device_once(monkeypatch):
+    """On the meta device, as on the card, the table's first call copies it
+    from the host; later calls find it there and copy nothing: the one
+    ``_to_copy`` left is the positions' widening to fp32."""
+    monkeypatch.setattr(am, "_ROPE_TABLES", {})
+    x = torch.empty((2, 16, 4, 64), device="meta")
+    pos = torch.empty((2, 16), dtype=torch.int32, device="meta")
+    copies = []
+    for _ in range(3):
+        with OpCost() as cost:
+            am.rope(x, pos, 1.0, 10000.0, False)
+        copies.append(cost.by_op["aten._to_copy"]["calls"])
+    assert copies == [2, 1, 1]
+    assert list(am._ROPE_TABLES) == [(torch.device("meta"), 64, 1.0,
+                                      10000.0)]

@@ -5,18 +5,17 @@ wgmma kernel, other bf16 inputs to the mma.sync kernel and fp32 to the
 fp32 kernel.  The tensors lie on the meta device (shapes and strides, no
 bytes), laid out as ``ops.flash_attention`` lays them out and ``out`` as
 the wrapper allocates it.  The wrapper's own choice is read by driving its
-card branch on meta tensors with the library call replaced by a recorder:
-that shows the route code it passes and the counter it moves, and that
-the scale's sign plays no part."""
-import contextlib
-import types
-
+card branch on meta tensors with the launch seam's device entry replaced
+by a recorder (``test_torch_launch_seam.record_launches``): that shows the
+route code it passes and the counter it moves, and that the scale's sign
+plays no part."""
 import pytest
 import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.kernels import flash_attention as fa
 from test_torch_kernels_gpu import CASES, CROSS_CASES, WG_FWD_CASES
+from test_torch_launch_seam import record_launches
 
 # each family's serving and training shape in chip_smoke.py: (arch, B, Sq,
 # Sk); seamless serves 512 frames and 512 tokens, and its decode identity
@@ -119,24 +118,13 @@ def test_fp32_never_takes_a_bf16_route():
 
 @pytest.fixture
 def recorded(monkeypatch):
-    """``flash_fwd``'s card branch on meta tensors: the library call
-    records its route code and returns success; the counters start at 0."""
-    calls = []
-
-    def kernel(*args):
-        calls.append(args[8])      # the route code, after dtype
-        return 0
-
-    monkeypatch.setattr(fa, "_check_cuda", lambda *ts: None)
-    monkeypatch.setattr(fa, "_fwd_kernel", lambda: kernel)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda dev: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    """``flash_fwd``'s card branch on meta tensors: the route code of each
+    launch (its argument after the dtype's); the counters start at 0."""
+    log, _ = record_launches(monkeypatch)
     monkeypatch.setattr(fa, "LAUNCHES", 0)
     monkeypatch.setattr(fa, "FWD_ROUTE_LAUNCHES",
                         {"wgmma": 0, "mma": 0, "fp32": 0})
-    return calls
+    return log
 
 
 @pytest.mark.parametrize("D,route", [(128, "wgmma"), (256, "wgmma"),
@@ -147,7 +135,8 @@ def test_a_negative_scale_takes_the_same_route(recorded, D, route):
     q5, k4, v4 = _inputs(2, 200, 8, 2, D)
     for scale in (1.0 / D ** 0.5, -1.0 / D ** 0.5):
         fa.flash_fwd(q5, k4, v4, causal=True, scale=scale)
-    assert recorded == [fa._ROUTE_CODES[route]] * 2
+    assert [args[8] for _, _, args in recorded] \
+        == [fa._ROUTE_CODES[route]] * 2
     assert fa.LAUNCHES == 2
     assert fa.FWD_ROUTE_LAUNCHES == {r: 2 if r == route else 0
                                      for r in ("wgmma", "mma", "fp32")}
