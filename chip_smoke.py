@@ -37,7 +37,10 @@ Phases, each fatal on failure:
    deepseek-7b's full-width decode step at the chat cell's shape replayed
    from CUDA graphs against op by op (``phase_decode_graphs``: one step
    bit for bit, host ms a token, device ms, launches a step, captures a
-   round);
+   round); then Mamba2's decode step (``ssd_decode``: the conv and
+   state kernels) against its twin at granite-4.0-h-small's chat shape
+   and mamba2-370m's, timed against its byte bound and the twin
+   (``phase_ssd_decode``);
 3. drive the serving slice through the port's entry points at full width:
    deepseek-7b (30 layers, d 4096, bf16, random weights from a seeded
    generator on the card), ``attn_impl="flash_pallas"``, B=4 prompts of
@@ -78,7 +81,8 @@ Phases, each fatal on failure:
    training slice's checks, the aux loss finite and positive);
    then the recurrent families at full width: mamba2-370m (Mamba2 SSD, 48
    layers, no attention) serving (the serving slice's prompts and steps,
-   no kernel launch, decode at S against a prefill of S+1, one layer's
+   ``ssd_decode`` once a layer a decode step and no other kernel launch,
+   decode at S against a prefill of S+1, one layer's
    chunked SSD against its sequential recurrence in fp32) and training
    (the training slice's settings, exact quantize / dequantize counts, one
    layer's fp32 gradients on the card against the host's), and
@@ -247,6 +251,16 @@ ENCDEC_CROSS_CASE = (SLICE_BATCH, SLICE_PROMPT // 2 + 1, 16, 16, 64, False,
                      0, 0, SLICE_PROMPT // 2)
 VLM_SERVE_CASE = (SLICE_BATCH, SLICE_PROMPT, 8, 1, 256, True, 0, 256)
 VLM_TRAIN_CASE = (TRAIN_BATCH, TRAIN_SEQ, 8, 1, 256, True, 0, 256)
+# Mamba2's decode step (``ssd_decode``: the conv and state kernels) at
+# granite-4.0-h-small's chat shape and mamba2-370m's serving shape, bf16:
+# (B, H, N, P, conv width, conv bias).  The new state within 2^-20 of its
+# largest magnitude (the update rounds as the twin's elementwise ops do),
+# the conv tail bit for bit, y within one bf16 unit in the last place and
+# N 2^-23 sum_n |C_n s_n| (the readout's fp32 sum over N in another order;
+# tests/test_torch_ssd_decode.py gives the reason).
+SSD_DECODE_CASES = {"granite_chat": (16, 128, 128, 64, 4, True),
+                    "mamba2_serve": (SLICE_BATCH, 32, 128, 64, 4, False)}
+SSD_DECODE_STATE_REL_TOL = 2.0 ** -20
 # One SSM layer at full width in fp32: the chunked ssd_forward against
 # the sequential ssd_decode_step over SLICE_PROMPT steps, at the
 # reference's chunked-vs-sequential tolerance (tests/test_models.py).
@@ -1197,6 +1211,13 @@ def decode_attn_layers(cfg) -> int:
     return attn_layers(cfg)
 
 
+def ssd_layers(cfg) -> int:
+    """The Mamba2 layers, each of which launches ``ssd_decode`` once a
+    decode step."""
+    from repro_torch.models.transformer import block_kinds
+    return sum(k in ("ssm", "ssm_moe") for k in block_kinds(cfg))
+
+
 def model_inputs(cfg, gen, B: int, S: int) -> dict:
     """A batch of B rows for a budget of S positions through the port's
     ``make_inputs``, split as the reference's ``text_len`` splits it: the
@@ -1222,7 +1243,9 @@ def serve_main_path(cfg) -> tuple[dict, dict]:
     SLICE_DECODE_STEPS greedy ``make_decode_step`` steps, after a warm-up.
     Every launch counter is set to 0 just before the prefill and before
     the decode steps and read just after each: ``flash_fwd`` must run once
-    an attention layer in the prefill and nothing else anywhere.  The logits must be
+    an attention layer in the prefill, ``decode_attn`` once an attention
+    layer and ``ssd_decode`` once a Mamba2 layer a decode step, and
+    nothing else anywhere.  The logits must be
     finite and the tokens in the vocabulary.  Returns the state the
     phase's checks go on from (params, the batch and its tokens, steps,
     the first greedy token, the first decode step's logits, the last token
@@ -1275,6 +1298,7 @@ def serve_main_path(cfg) -> tuple[dict, dict]:
     want["prefill"]["flash_fwd"] = attn_layers(cfg)
     want["decode"]["decode_attn"] = decode_attn_layers(cfg) \
         * SLICE_DECODE_STEPS
+    want["decode"]["ssd_decode"] = ssd_layers(cfg) * SLICE_DECODE_STEPS
     if launches != want:
         fail(f"{cfg.name} serving launches {launches}, want {want}")
     for part in launches:
@@ -1464,6 +1488,102 @@ def phase_decode_graphs() -> dict:
                          statistics.quantiles(times, n=20)[-1],
                      "host_ms_per_token_max": max(times), **prof[name]}
     del params, cache, copy
+    return out
+
+
+def _ssd_decode_inputs(case, dtype):
+    """proj, the layer's params, the fp32 state and the conv tail of one
+    Mamba2 decode step at an SSD_DECODE_CASES shape, drawn on the card
+    from a seed of the shape: granite's init for the conv, A_log and
+    dt_bias (see ``cardbench/configs/granite-4.0-h-small.json``)."""
+    import torch
+    B, H, N, P, K, bias = case
+    C = H * P + 2 * N
+    gen = torch.Generator(device="cuda").manual_seed(B * H + N)
+    u = lambda *s: torch.rand(s, generator=gen, device="cuda")
+    dt = torch.exp(math.log(1e-3) + u(H) * math.log(100.0))
+    params = {"conv": (u(K, C) - 0.5).to(dtype),
+              "dt_bias": dt + torch.log(-torch.expm1(-dt)),
+              "a_log": torch.log(1.0 + 15.0 * u(H)),
+              "d_skip": torch.ones(H, device="cuda")}
+    if bias:
+        params["conv_bias"] = (u(C) - 0.5).to(dtype)
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    return (mk(B, 1, 2 * H * P + 2 * N + H).to(dtype), params,
+            mk(B, H, N, P), mk(B, K - 1, C).to(dtype))
+
+
+def ssd_decode_bytes(case, itemsize: int = 2) -> int:
+    """The bytes one ``ssd_decode`` call must move, each once: the fp32
+    state read and written, the conv tail read and written, x, B, C and
+    dt read, y written, the conv's taps and bias and the fp32 per-head
+    vectors read (``cardbench/metrics/ssd_decode_roofline.serve.py``
+    counts the same)."""
+    B, H, N, P, K, bias = case
+    C = H * P + 2 * N
+    return (8 * B * H * N * P + 2 * itemsize * B * (K - 1) * C
+            + itemsize * B * (C + H + H * P) + itemsize * (K + bias) * C
+            + 12 * H)
+
+
+def phase_ssd_decode() -> dict:
+    """Mamba2's decode step through ``ssd_decode`` (the conv and state
+    kernels, the state and conv tail in place) against its plain twin at
+    each SSD_DECODE_CASES shape in bf16, exactly one launch a call; then
+    timed beside its byte bound and the twin's time: ``ms`` from CUDA
+    events over a CUDA graph of 20 calls (the card's time, as a decode
+    step replays it: eager, the wrapper's host time paces the calls),
+    ``eager_ms`` and ``plain_ms`` over calls from the host.  Each call
+    runs on the state the last one left; granite's 67 MB state does not
+    fit in L2."""
+    import torch
+    from repro_torch.kernels import ssd_decode as sd
+    out = {}
+    for name, case in SSD_DECODE_CASES.items():
+        proj, params, state, conv = _ssd_decode_inputs(case, torch.bfloat16)
+        B, H, N, P = state.shape
+        conv_out, _ = sd.causal_conv(proj[..., H * P:2 * H * P + 2 * N],
+                                     params["conv"], conv,
+                                     params.get("conv_bias"))
+        want_y, want_st, want_cv = sd.ssd_decode_reference(
+            proj, params, state.clone(), conv.clone())
+        before = sd.SSD_DECODE_LAUNCHES
+        y, st, cv = sd.ssd_decode(proj, params, state, conv)
+        torch.cuda.synchronize()
+        mag = torch.einsum("bn,bhnp->bhp", conv_out[:, 0, H * P + N:]
+                           .float().abs(), want_st.abs()).reshape(y.shape)
+        gap = (y.float() - want_y.float()).abs()
+        scale = float(want_st.abs().max())
+        r = {"shape": list(case), "launches": sd.SSD_DECODE_LAUNCHES - before,
+             "state_max_abs_err": float((st - want_st).abs().max()),
+             "state_abs_max": scale, "tail_equal": torch.equal(cv, want_cv),
+             "y_ulps": _ulps(y, want_y), "y_max_abs_err": float(gap.max()),
+             "y_within": bool((gap <= N * 2.0 ** -23 * mag + 2.0 ** -7
+                               * want_y.float().abs()).all())}
+        if r["launches"] != 1 or st is not state or not r["tail_equal"] \
+                or r["state_max_abs_err"] > SSD_DECODE_STATE_REL_TOL * scale \
+                or not r["y_within"]:
+            fail(f"ssd_decode at {name} against its twin: {r}")
+        del want_y, want_st, want_cv, y, st, cv, conv_out, mag, gap
+        call = lambda: sd.ssd_decode(proj, params, state, conv)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(20):
+                call()
+        r["ms"] = cuda_ms(graph.replay, 10) / 20
+        r["eager_ms"] = cuda_ms(call, 50)
+        r["plain_ms"] = cuda_ms(lambda: sd.ssd_decode_reference(
+            proj, params, state, conv), 10)
+        r["bound_ms"] = ssd_decode_bytes(case) / HBM_BYTES_PER_S * 1e3
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        out[name] = r
+        del graph, proj, params, state, conv
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1658,8 +1778,9 @@ def fp32_serving_checks(cfg, batch) -> dict:
 
 def phase_ssm_serve() -> dict:
     """The SSM serving slice, mamba2-370m at full width and depth, through
-    the port's entry points (``serve_main_path``: no kernel launch
-    anywhere, there is no attention layer); decode at S against a prefill
+    the port's entry points (``serve_main_path``: ``ssd_decode`` once a
+    layer a decode step and no other launch, there is no attention
+    layer); decode at S against a prefill
     of S+1, reported in bf16 and held in fp32; one layer's chunked SSD
     against its sequential recurrence."""
     import torch
@@ -2134,12 +2255,14 @@ def _counters():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import shard_pack as sp
+    from repro_torch.kernels import ssd_decode as sd
     return {"flash_fwd": fa.LAUNCHES, "flash_bwd_dq": fa.BWD_DQ_LAUNCHES,
             "flash_bwd_dkv": fa.BWD_DKV_LAUNCHES,
             "quantize": qz.QUANT_LAUNCHES, "dequantize": qz.DEQUANT_LAUNCHES,
             "checksum": ck.CHECKSUM_LAUNCHES, "shard_pack": sp.PACK_LAUNCHES,
             "shard_unpack": sp.UNPACK_LAUNCHES,
-            "decode_attn": da.DECODE_ATTN_LAUNCHES}
+            "decode_attn": da.DECODE_ATTN_LAUNCHES,
+            "ssd_decode": sd.SSD_DECODE_LAUNCHES}
 
 
 def _zero_counters() -> None:
@@ -2148,12 +2271,13 @@ def _zero_counters() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import shard_pack as sp
+    from repro_torch.kernels import ssd_decode as sd
     fa.LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
     for route in ROUTES:
         fa.FWD_ROUTE_LAUNCHES[route] = fa.BWD_ROUTE_LAUNCHES[route] = 0
     qz.QUANT_LAUNCHES = qz.DEQUANT_LAUNCHES = 0
     ck.CHECKSUM_LAUNCHES = sp.PACK_LAUNCHES = sp.UNPACK_LAUNCHES = 0
-    da.DECODE_ATTN_LAUNCHES = 0
+    da.DECODE_ATTN_LAUNCHES = sd.SSD_DECODE_LAUNCHES = 0
     for route in DECODE_ROUTES:
         da.ROUTE_LAUNCHES[route] = 0
 
@@ -3278,6 +3402,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     graphs_run = phase_decode_graphs()
     print(json.dumps({"decode_graphs": graphs_run, "card": card}))
+    ssd_run = phase_ssd_decode()
+    print(json.dumps({"ssd_decode": ssd_run, "card": card}))
     torch.cuda.empty_cache()
     slice_run = phase_slice()
     print(json.dumps({"slice": slice_run, "card": card}))
@@ -3467,7 +3593,18 @@ def main() -> int:
                         "plain_ms", "bound_ms", "splits", "library_ms",
                         "library_device_ms", "library_launches",
                         "library_max_abs_err", "library_attention")
-            if key in r}}]}
+            if key in r}}, {
+        "name": "ssd_decode", "route": "cuda",
+        "source": csrc + "ssd_decode.cu", "replaces": None,
+        "launches": ssm_serve_run["launches"]["decode"]["ssd_decode"],
+        "max_abs_err": max(r["y_max_abs_err"] for r in ssd_run.values()),
+        "ms": ssd_run["granite_chat"]["ms"],
+        "plain_ms": ssd_run["granite_chat"]["plain_ms"],
+        "bound_ms": ssd_run["granite_chat"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, **{
+            f"{key}_{name}": r[key] for name, r in ssd_run.items()
+            for key in ("ms", "plain_ms", "bound_ms", "share_of_bound",
+                        "state_max_abs_err", "y_ulps")}}]}
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -36,6 +36,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import decode_attention as DA
+from ..kernels import ssd_decode as SD
 from ..spans import span
 from ..tree import tree_leaves
 from . import layers as L
@@ -141,13 +142,16 @@ def forward_decode(params: Params, cfg, cache: dict, tokens: torch.Tensor,
 
 def _ssm_decode_block(lp, x, cfg, cache, j):
     """Mamba2 layer ``j``'s decode mixer (norm, the recurrence step, the
-    scaled residual), its state and conv tail written in place."""
+    scaled residual), its state and conv tail written in place (by the
+    ``ssd_decode`` kernels on the card, copied from the twin's output on
+    the CPU)."""
     with span("decode.ssm"):
         h = L.rms_norm(x, lp["norm1"], cfg.rms_eps)
-        y, st, cv = SSM.ssd_decode_step(lp["ssm"], h, cfg,
-                                        cache["state"][j], cache["conv"][j])
-        cache["state"][j].copy_(st)
-        cache["conv"][j].copy_(cv)
+        state, conv = cache["state"][j], cache["conv"][j]
+        y, st, cv = SSM.ssd_decode_step(lp["ssm"], h, cfg, state, conv)
+        if st is not state:     # the plain twin's new tensors
+            state.copy_(st)
+            conv.copy_(cv)
         return T._residual(x, y, cfg)
 
 
@@ -197,8 +201,9 @@ GRAPH_REPLAYS = 0      # decode steps DecodeGraphs replayed, on the host
 
 # the call counters a decode step's layers advance (a dict of counts, or
 # an int), which a replay advances as its capture did
-_COUNTED = ((SSM, "SSD_CALLS"), (M, "DROPLESS_CALLS"),
-            (DA, "DECODE_ATTN_LAUNCHES"), (DA, "ROUTE_LAUNCHES"))
+_COUNTED = ((SSM, "SSD_CALLS"), (SD, "SSD_DECODE_LAUNCHES"),
+            (M, "DROPLESS_CALLS"), (DA, "DECODE_ATTN_LAUNCHES"),
+            (DA, "ROUTE_LAUNCHES"))
 
 
 def _calls() -> dict:
@@ -237,8 +242,9 @@ class DecodeGraphs:
     replays; the host's position picks the op's split plan, so the plan is
     part of the key.  ``run`` replays each graph inside the span its ops
     would have opened, and advances the call counters as the captured ops
-    did (``ssm.SSD_CALLS``, ``moe.DROPLESS_CALLS``,
-    ``decode_attention.DECODE_ATTN_LAUNCHES`` and ``ROUTE_LAUNCHES``).  The
+    did (``ssm.SSD_CALLS``, ``ssd_decode.SSD_DECODE_LAUNCHES``,
+    ``moe.DROPLESS_CALLS``, ``decode_attention.DECODE_ATTN_LAUNCHES`` and
+    ``ROUTE_LAUNCHES``).  The
     first step on a new key runs op by op, and the graphs are captured
     after it: capturing runs nothing, so the cache advances once.
     Recapturing reuses the pool (the old graphs are dropped only once the

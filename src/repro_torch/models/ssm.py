@@ -11,7 +11,8 @@ quadratic work within chunks of at most ``ssm_chunk`` steps, masked by the
 decay kernel, and a linear recurrence over the chunk states.  The
 reference's ``lax.scan`` over chunks is a Python loop here (at most 16
 chunks at the training length).  Decode is the O(1) recurrence on a
-(B, H, N, P) state.  ``jax.nn.softplus`` is ``logaddexp(x, 0)`` where
+(B, H, N, P) state, the kernels of ``kernels/ssd_decode.py`` on the card.
+``jax.nn.softplus`` is ``logaddexp(x, 0)`` where
 ``F.softplus`` returns x above 20: they differ by < 2e-9.
 
 ``cfg.ssm_conv_bias`` adds a bias to the depthwise conv (granite-4.0-h),
@@ -24,9 +25,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..kernels.ssd_decode import causal_conv, ssd_decode
 from .layers import _dtype, _init, init_device, rms_norm
 
 SSD_CALLS = {"prefill": 0, "decode": 0}
+# the reference's name for the depthwise causal conv, which the decode
+# kernels' twin shares with the prefill and the RG-LRU
+_causal_conv = causal_conv
 
 
 def init_ssm(gen: torch.Generator, cfg) -> dict:
@@ -57,27 +62,6 @@ def _split_proj(cfg, proj):
     din = cfg.ssm_expand * cfg.d_model
     N = cfg.ssm_state
     return torch.split(proj, [din, din, N, N, cfg.ssm_heads], dim=-1)
-
-
-def _causal_conv(x, w, state=None, bias=None):
-    """x: (B, S, D); w: (K, D) depthwise causal conv, plus ``bias`` (D,)
-    where one is given.  If state (B, K-1, D) is given, runs in streaming
-    mode and returns (y, new_state)."""
-    K = w.shape[0]
-    if state is None:
-        pad = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
-        xp = torch.cat([pad, x], dim=1)
-    else:
-        xp = torch.cat([state.to(x.dtype), x], dim=1)
-    S = x.shape[1]
-    y = xp[:, :S] * w[0]
-    for i in range(1, K):
-        y = y + xp[:, i:i + S] * w[i]
-    if bias is not None:
-        y = y + bias
-    if state is None:
-        return F.silu(y)
-    return F.silu(y), xp[:, -(K - 1):]
 
 
 def _segsum(log_a):
@@ -164,27 +148,13 @@ def ssd_forward(params: dict, x: torch.Tensor, cfg,
 def ssd_decode_step(params: dict, x: torch.Tensor, cfg,
                     state: torch.Tensor, conv_state: torch.Tensor):
     """x: (B, 1, d); state: (B, H, N, P); conv_state: (B, K-1, din+2N).
-    Returns (y (B, 1, d), state', conv_state'), new tensors."""
-    B = x.shape[0]
-    H, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim
+    Returns (y (B, 1, d), state', conv_state'): on the card the given state
+    and conv tail, updated in place by the ``ssd_decode`` kernels; on the
+    CPU new tensors from its plain twin."""
+    din = cfg.ssm_expand * cfg.d_model
     proj = x @ params["w_in"]
-    z, xin, Bc, Cc, dtp = _split_proj(cfg, proj)
-    conv_in = torch.cat([xin, Bc, Cc], dim=-1)
-    conv_out, conv_state = _causal_conv(conv_in, params["conv"], conv_state,
-                                        params.get("conv_bias"))
-    din = xin.shape[-1]
-    xin, Bc, Cc = torch.split(conv_out, [din, N, N], dim=-1)
-    dt = F.softplus(dtp.float() + params["dt_bias"])[:, 0]  # (B, H)
-    A = -torch.exp(params["a_log"])
-    a = torch.exp(dt * A)                                    # (B, H)
-    xh = xin.reshape(B, H, P).float()
-    Bv = Bc[:, 0].float()                                    # (B, N)
-    Cv = Cc[:, 0].float()
-    state = (state * a[..., None, None]
-             + Bv[:, None, :, None] * (dt[..., None] * xh)[:, :, None, :])
-    y = torch.einsum("bn,bhnp->bhp", Cv, state)
-    y = y + params["d_skip"][None, :, None] * xh
-    y = y.reshape(B, 1, H * P).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["out_norm"], cfg.rms_eps)
+    y, state, conv_state = ssd_decode(proj, params, state, conv_state)
+    y = rms_norm(y * F.silu(proj[..., :din]), params["out_norm"],
+                 cfg.rms_eps)
     SSD_CALLS["decode"] += 1
     return y @ params["w_out"], state, conv_state

@@ -19,6 +19,7 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import shard_pack as sp
+from repro_torch.kernels import ssd_decode as sd
 
 
 class _Function:
@@ -93,6 +94,17 @@ def _decode_attn():
     da.decode_attn(q, kv, kv, cache, cache, 40, 1.0, 10000.0, False)
 
 
+def _ssd_decode():
+    # the card branch itself: on meta the wrapper takes its twin
+    B, H, N, P, K = 2, 4, 16, 16, 4
+    C = H * P + 2 * N
+    params = {"conv": _meta(K, C), "conv_bias": _meta(C),
+              **{n: _meta(H, dtype=torch.float32)
+                 for n in ("dt_bias", "a_log", "d_skip")}}
+    sd._launch(_meta(B, 1, 2 * H * P + 2 * N + H), params,
+               _meta(B, H, N, P, dtype=torch.float32), _meta(B, K - 1, C))
+
+
 # wrapper -> (its call on meta tensors, the (library, function) pairs it
 # launches in order, {(module, counter, key or None): increment}, what a
 # failed first launch's message opens with)
@@ -130,6 +142,8 @@ CASES = {
                     {(da, "DECODE_ATTN_LAUNCHES", None): 1,
                      (da, "ROUTE_LAUNCHES", "mma"): 1},
                     "decode_attn (mma route)"),
+    "ssd_decode": (_ssd_decode, [("ssd_decode", "ssd_decode")],
+                   {(sd, "SSD_DECODE_LAUNCHES", None): 1}, "ssd_decode"),
 }
 
 
